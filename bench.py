@@ -1,126 +1,178 @@
-"""Headline benchmark: env-steps/s at 8192 QuadX-Hover instances on one chip.
+"""Env-stepping throughput on one GPU: fused-kernel envs and their XLA twins.
 
-Prints ONE JSON line:
-    {"metric": "...", "value": N, "unit": "...", "vs_baseline": N}
+    python bench.py          # QuadX-Hover: the XLA env and the fused kernel
+    python bench.py --all    # every fused-kernel env beside its XLA twin
 
-The reference publishes no throughput numbers (BASELINE.md); the recorded
-north-star target is ≥10M env-steps/s at 8192 envs on one TPU v5e chip, so
-``vs_baseline`` is reported relative to that target.
+Each measurement is one jitted program: reset of ``NUM_ENVS`` envs, then a
+``STEPS``-step ``lax.scan`` with random actions around a fixed action. Envs
+with a cached auto-reset path run it on both sides (refresh period
+``REFRESH``); the others step without resets on both sides (finished envs
+stay frozen in both, so both do the same work). Compilation is timed apart;
+the reported time is the median of ``REPEATS`` timed runs with fresh keys.
+
+Prints one JSON line per measurement with the platform, device kind, device
+count and the card's name and power limit. With no GPU it prints one JSON
+error line and exits 1: there is no CPU number.
 """
 
+from __future__ import annotations
+
+import argparse
 import json
+import statistics
+import sys
 import time
 
 import jax
 import jax.numpy as jnp
 
-from pyflyt_tpu.envs.packed_hover import (
-    PackedQuadXHoverEnv,
-    packed_autoreset_init,
-    packed_cached_autoreset_step,
-)
-from pyflyt_tpu.envs.quadx_hover import QuadXHoverEnv
+from pyflyt_tpu import device
 
 NUM_ENVS = 8192
-STEPS_PER_CHUNK = 512  # long chunks amortize per-dispatch latency
-TARGET_ENV_STEPS_PER_S = 10_000_000.0  # BASELINE.json north star
+STEPS = 512
+REFRESH = 64
+REPEATS = 3
 
 
-def check_mosaic_parity(n=256, steps=3, atol=2e-4):
-    """Real-lowering parity gate: the CPU test suite only exercises the
-    kernel under ``interpret=True``, so this asserts — on the actual chip,
-    noise off — that the Mosaic-lowered fused agent step tracks the XLA
-    pipeline (obs/reward/flags) before any number is reported. Raises (and
-    thereby fails the bench loudly) on divergence."""
-    import numpy as np
-
-    from pyflyt_tpu.envs.base import vec_reset
-
-    base = QuadXHoverEnv(noisy_motors=False)
-    penv = PackedQuadXHoverEnv(base=base)
-    keys = jax.random.split(jax.random.PRNGKey(7), n)
-    ref_st, _ = vec_reset(base, keys)
-    pk_st, _ = penv.reset(keys)
-    vstep = jax.jit(jax.vmap(base.step))
-    pstep = jax.jit(penv.step)
-    action = jnp.tile(jnp.asarray([0.0, 0.0, 0.0, 0.42]), (n, 1))
-    for i in range(steps):
-        ref_st, ref_out = vstep(ref_st, action)
-        pk_st, out = pstep(pk_st, action)
-        np.testing.assert_allclose(
-            np.asarray(out.obs), np.asarray(ref_out.obs), atol=atol,
-            err_msg=f"Mosaic/XLA obs divergence at step {i}",
-        )
-        np.testing.assert_allclose(
-            np.asarray(out.reward), np.asarray(ref_out.reward), atol=atol,
-            err_msg=f"Mosaic/XLA reward divergence at step {i}",
-        )
-        np.testing.assert_array_equal(
-            np.asarray(out.termination), np.asarray(ref_out.termination),
-            err_msg=f"Mosaic/XLA termination divergence at step {i}",
-        )
-
-
-def main():
-    # the fused-kernel hover env (envs/packed_hover.py): the whole agent
-    # step — 3 aviary steps + reward/termination/freeze — is one Pallas
-    # kernel on the (ROWS, 8, N/8) packed state; parity with the XLA
-    # pipeline is asserted in tests/test_packed_hover.py (interpret mode)
-    # and by check_mosaic_parity above (real TPU lowering, every run).
-    # The pure-XLA path (QuadXHoverEnv + cached_autoreset_step) measures
-    # 27.3M on this bench.
-    check_mosaic_parity()
-    env = PackedQuadXHoverEnv(base=QuadXHoverEnv())
-    keys = jax.random.split(jax.random.PRNGKey(0), NUM_ENVS)
-    # cached auto-reset: the reset work runs once every `refresh` steps
-    # instead of for the whole batch every step (envs/base.py)
-    state, _ = jax.jit(lambda k: packed_autoreset_init(env, k))(keys)
+def _workloads():
+    """name -> (xla_env, packed_env, action_center, kind). ``kind`` is
+    "cached" (cached auto-reset on both sides) or "step" (plain steps)."""
+    from pyflyt_tpu.envs.fixedwing_waypoints import FixedwingWaypointsEnv
+    from pyflyt_tpu.envs.ma_fixedwing_dogfight import MAFixedwingDogfightEnv
+    from pyflyt_tpu.envs.packed_dogfight import PackedMAFixedwingDogfightEnv
+    from pyflyt_tpu.envs.packed_fixedwing_waypoints import (
+        PackedFixedwingWaypointsEnv,
+    )
+    from pyflyt_tpu.envs.packed_hover import PackedQuadXHoverEnv
+    from pyflyt_tpu.envs.packed_quadx_waypoints import PackedQuadXWaypointsEnv
+    from pyflyt_tpu.envs.packed_rocket_landing import PackedRocketLandingEnv
+    from pyflyt_tpu.envs.quadx_hover import QuadXHoverEnv
+    from pyflyt_tpu.envs.quadx_mod.hovering import QuadXModHoveringEnv
+    from pyflyt_tpu.envs.quadx_mod.packed_hovering import (
+        PackedQuadXModHoveringEnv,
+    )
+    from pyflyt_tpu.envs.quadx_waypoints import QuadXWaypointsEnv
+    from pyflyt_tpu.envs.rocket_landing import RocketLandingEnv
 
     hover_t = float(jnp.sqrt(0.027 * 9.81 / 2.0))
+    hover = QuadXHoverEnv()
+    qwp = QuadXWaypointsEnv()
+    mod = QuadXModHoveringEnv(flight_mode=9)
+    fw = FixedwingWaypointsEnv()
+    rk = RocketLandingEnv()
+    dog = MAFixedwingDogfightEnv()
+    return {
+        "quadx_hover": (hover, PackedQuadXHoverEnv(base=hover),
+                        [0.0, 0.0, 0.0, hover_t], "cached"),
+        "quadx_waypoints": (qwp, PackedQuadXWaypointsEnv(base=qwp),
+                            [0.0, 0.0, 0.0, hover_t], "step"),
+        "quadx_mod_hovering": (mod, PackedQuadXModHoveringEnv(base=mod),
+                               [0.0, 0.0, 0.0, 0.0], "cached"),
+        "fixedwing_waypoints": (fw, PackedFixedwingWaypointsEnv(base=fw),
+                                [0.0] * fw.action_size, "step"),
+        "rocket_landing": (rk, PackedRocketLandingEnv(base=rk),
+                           [0.0] * 6 + [0.5], "step"),
+        "dogfight": (dog, PackedMAFixedwingDogfightEnv(base=dog),
+                     [0.0, 0.0, 0.0, 0.7], "step"),
+    }
+
+
+def _actions(key, center, n, agents):
+    shape = (n, agents, len(center)) if agents else (n, len(center))
+    return jnp.asarray(center) + 0.1 * jax.random.normal(key, shape)
+
+
+def make_run(name: str, fused: bool, n: int = NUM_ENVS, steps: int = STEPS):
+    """The jitted ``key -> reward sum`` program of one measurement, and the
+    number of agent-steps it takes."""
+    from pyflyt_tpu.envs.base import autoreset_init, cached_autoreset_step
+    from pyflyt_tpu.envs.packed_hover import (
+        PackedQuadXHoverEnv,
+        packed_autoreset_init,
+        packed_cached_autoreset_step,
+    )
+
+    xla_env, packed_env, center, kind = _workloads()[name]
+    agents = 2 if name == "dogfight" else 0
+    n_inst = n // 2 if agents else n  # dogfight: n agents = n/2 arenas
+
+    if kind == "cached" and fused and isinstance(packed_env, PackedQuadXHoverEnv):
+        init = lambda k: packed_autoreset_init(packed_env, k)[0]
+        step = lambda s, a: packed_cached_autoreset_step(packed_env, s, a, REFRESH)
+    elif kind == "cached" and fused:
+        init = lambda k: packed_env.cached_autoreset_init(k)[0]
+        step = lambda s, a: packed_env.cached_autoreset_step(s, a, REFRESH)
+    elif kind == "cached":
+        init = lambda k: autoreset_init(xla_env, k)[0]
+        step = lambda s, a: cached_autoreset_step(xla_env, s, a, REFRESH)
+    elif fused:
+        init = lambda k: packed_env.reset(k)[0]
+        step = packed_env.step
+    else:
+        init = lambda k: jax.vmap(xla_env.reset)(k)[0]
+        step = jax.vmap(xla_env.step)
 
     @jax.jit
-    def rollout_chunk(state, key):
-        def body(carry, _):
-            st, key = carry
-            key, sub = jax.random.split(key)
-            # cheap stochastic policy: hover action + exploration noise
-            action = jnp.asarray([0.0, 0.0, 0.0, hover_t]) + 0.1 * jax.random.normal(
-                sub, (NUM_ENVS, 4)
-            )
-            st, out = packed_cached_autoreset_step(env, st, action, refresh=64)
-            return (st, key), out.reward
+    def run(key):
+        k_reset, k_act = jax.random.split(key)
+        state = init(jax.random.split(k_reset, n_inst))
 
-        (state, key), rewards = jax.lax.scan(
-            body, (state, key), None, length=STEPS_PER_CHUNK
+        def body(carry, k):
+            st, total = carry
+            st, out = step(st, _actions(k, center, n_inst, agents))
+            return (st, total + jnp.sum(out.reward)), None
+
+        (_, total), _ = jax.lax.scan(
+            body, (state, jnp.zeros(())), jax.random.split(k_act, steps)
         )
-        return state, key, rewards.sum()
+        return total
 
-    key = jax.random.PRNGKey(1)
-    # warmup / compile
-    state, key, _ = rollout_chunk(state, key)
-    jax.block_until_ready(state)
+    return run, n * steps
 
-    n_chunks = 4
+
+def measure(name: str, fused: bool, info: dict) -> dict:
+    run, agent_steps = make_run(name, fused)
     t0 = time.perf_counter()
-    total = 0.0
-    for _ in range(n_chunks):
-        state, key, rsum = rollout_chunk(state, key)
-    jax.block_until_ready(state)
-    dt = time.perf_counter() - t0
+    total = float(run(jax.random.PRNGKey(0)))
+    compile_s = time.perf_counter() - t0
+    times = []
+    for i in range(REPEATS):
+        t0 = time.perf_counter()
+        jax.block_until_ready(run(jax.random.PRNGKey(i + 1)))
+        times.append(time.perf_counter() - t0)
+    t = statistics.median(times)
+    return {
+        "metric": f"{name} {'fused kernel' if fused else 'XLA'} agent-steps/s",
+        "value": agent_steps / t,
+        "unit": "agent-steps/s",
+        "num_envs": NUM_ENVS,
+        "steps": STEPS,
+        "seconds": t,
+        "seconds_all": times,
+        "first_call_s": compile_s,
+        "reward_finite": bool(jnp.isfinite(total)),
+        **info,
+    }
 
-    env_steps = NUM_ENVS * STEPS_PER_CHUNK * n_chunks
-    steps_per_s = env_steps / dt
-    print(
-        json.dumps(
-            {
-                "metric": f"QuadX-Hover env-steps/s ({NUM_ENVS} envs, 1 chip)",
-                "value": round(steps_per_s),
-                "unit": "env-steps/s",
-                "vs_baseline": round(steps_per_s / TARGET_ENV_STEPS_PER_S, 3),
-            }
-        )
-    )
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--all", action="store_true",
+                   help="every fused-kernel env beside its XLA twin")
+    args = p.parse_args(argv)
+    try:
+        device.require_gpu()
+    except device.NoGpuError as e:
+        print(json.dumps({"error": str(e)}))
+        return 1
+    device.enable_compile_cache()
+    info = device.describe()
+    names = list(_workloads()) if args.all else ["quadx_hover"]
+    for name in names:
+        for fused in (False, True):
+            print(json.dumps(measure(name, fused, info)), flush=True)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

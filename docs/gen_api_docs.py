@@ -34,6 +34,7 @@ jax.config.update("jax_platforms", "cpu")
 
 MODULES = [
     "pyflyt_tpu",
+    "pyflyt_tpu.device",
     "pyflyt_tpu.core.aviary",
     "pyflyt_tpu.core.camera",
     "pyflyt_tpu.core.integrator",
@@ -41,6 +42,7 @@ MODULES = [
     "pyflyt_tpu.core.math",
     "pyflyt_tpu.core.params",
     "pyflyt_tpu.core.state",
+    "pyflyt_tpu.core.struct",
     "pyflyt_tpu.core.wind",
     "pyflyt_tpu.models.quadx",
     "pyflyt_tpu.models.fixedwing",
@@ -56,8 +58,7 @@ MODULES = [
     "pyflyt_tpu.ops.pallas_fixedwing",
     "pyflyt_tpu.ops.pallas_rocket",
     "pyflyt_tpu.ops.pallas_dogfight",
-    "pyflyt_tpu.ops.pallas_sgd",
-    "pyflyt_tpu.ops.pallas_policy",
+    "pyflyt_tpu.ops.pallas_math",
     "pyflyt_tpu.envs.base",
     "pyflyt_tpu.envs.gym_wrapper",
     "pyflyt_tpu.envs.pz_wrapper",

@@ -1,6 +1,6 @@
 """Spawn a single QuadX and fly a position setpoint.
 
-TPU-native equivalent of /root/reference/examples/core/01_single_drone.py.
+Batched-JAX equivalent of /root/reference/examples/core/01_single_drone.py.
 """
 
 import jax

@@ -1,6 +1,6 @@
 """Multiple drones with heterogeneous control rates in one simulation.
 
-TPU-native equivalent of /root/reference/examples/core/02_multi_drone.py +
+Batched-JAX equivalent of /root/reference/examples/core/02_multi_drone.py +
 08_mixed_drones.py: a rocket, a quadx and a fixedwing stepped in lockstep.
 """
 

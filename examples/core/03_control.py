@@ -1,6 +1,6 @@
 """Fly two consecutive position setpoints and log the xyz trajectory.
 
-TPU-native equivalent of /root/reference/examples/core/03_control.py (+ the
+Batched-JAX equivalent of /root/reference/examples/core/03_control.py (+ the
 03_control_NED_FRD.py variant): the 1000-step rollout is a ``lax.scan`` —
 the whole flight compiles to one XLA program, and the log comes back as a
 single (1000, 3) array instead of a Python-loop append.

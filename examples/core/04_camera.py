@@ -1,6 +1,6 @@
 """Capture a drone camera image (RGBA / depth / segmentation).
 
-TPU-native equivalent of /root/reference/examples/core/04_camera.py: the
+Batched-JAX equivalent of /root/reference/examples/core/04_camera.py: the
 reference reads ``drone.rgbaImg/depthImg/segImg`` off a PyBullet GL camera;
 here ``capture_image`` is an analytic ray-cast render — fully jittable, so
 vision observations batch with ``vmap`` like everything else.

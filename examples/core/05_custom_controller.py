@@ -1,6 +1,6 @@
 """Register a custom controller over a base flight mode.
 
-TPU-native equivalent of /root/reference/examples/core/05_custom_controller.py:
+Batched-JAX equivalent of /root/reference/examples/core/05_custom_controller.py:
 the reference registers a `ControlClass` instance as a new mode
 (base_drone.py:265-285); here a custom controller is a pure
 ``(view, setpoint) -> setpoint`` function evaluated before the base-mode

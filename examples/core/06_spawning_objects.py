@@ -1,6 +1,6 @@
 """Spawn scene objects — an OBJ mesh and a raw box — and detect contact.
 
-TPU-native equivalent of /root/reference/examples/core/06_spawning_objects.py:
+Batched-JAX equivalent of /root/reference/examples/core/06_spawning_objects.py:
 the reference loads a duck OBJ into PyBullet (obj_visual + obj_collision +
 loadOBJ + register_all_new_bodies, core/utils/load_objs.py:8-80); here one
 ``loadOBJ`` call decomposes the mesh into static oriented boxes

@@ -1,6 +1,6 @@
 """Register a custom UAV type: the RocketBrick.
 
-TPU-native equivalent of /root/reference/examples/core/07_custom_uav.py +
+Batched-JAX equivalent of /root/reference/examples/core/07_custom_uav.py +
 custom_uavs/rocket_brick.py ("with enough thrust, you can make a brick
 fly"): a 1 kg brick with quadratic drag and one fueled booster. Custom
 vehicles implement the small duck-typed handle interface and register via
@@ -10,7 +10,7 @@ aviary.py:122-130).
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 
 from pyflyt_tpu.core import Aviary, DroneSpec, integrator, register_drone_type
 from pyflyt_tpu.core.state import Body6DoF

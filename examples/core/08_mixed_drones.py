@@ -1,7 +1,7 @@
 """Spawns three different drone types with per-drone options, then reads
 all their states.
 
-TPU-native equivalent of /root/reference/examples/core/08_mixed_drones.py:
+Batched-JAX equivalent of /root/reference/examples/core/08_mixed_drones.py:
 a rocket (defaults), a quadx with a non-default airframe, and a fixedwing
 spawned at rest — each with its own spawn options and flight mode, stepped
 in lockstep inside one jitted scan.

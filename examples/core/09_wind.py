@@ -1,14 +1,14 @@
 """Attach wind fields to the simulation.
 
-TPU-native equivalent of /root/reference/examples/core/09_simple_wind.py +
+Batched-JAX equivalent of /root/reference/examples/core/09_simple_wind.py +
 10_custom_wind.py: wind fields are pytree callables
 ``(physics_step, position) -> velocity`` — use the built-ins or write your
-own (any flax struct with a __call__ works, including batched parameters).
+own (any struct dataclass with a __call__ works, including batched parameters).
 """
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 
 from pyflyt_tpu.core import Aviary, DroneSpec
 from pyflyt_tpu.core.wind import GaussianWind

@@ -1,6 +1,6 @@
 """Implements a custom stateful wind model.
 
-TPU-native equivalent of /root/reference/examples/core/10_custom_wind.py:
+Batched-JAX equivalent of /root/reference/examples/core/10_custom_wind.py:
 the reference subclasses ``WindFieldClass`` with arbitrary parameters and an
 ``np_random`` noise stream; here a wind field is any pytree callable
 ``(physics_step, position) -> velocity``, so "stateful" parameters are
@@ -10,7 +10,7 @@ dataclass fields and randomness comes from a counter-folded JAX PRNG key
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 
 from pyflyt_tpu.core import Aviary, DroneSpec
 

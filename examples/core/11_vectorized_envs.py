@@ -1,11 +1,10 @@
-"""The TPU fast path: thousands of auto-resetting envs in one jitted program.
+"""The fast path: thousands of auto-resetting envs in one jitted program.
 
 This is where the framework departs from the reference: instead of one
 process per environment (SubprocVecEnv), the entire batch steps in lockstep
-on device. On a v5e chip, 8192 QuadX-Hover envs exceed 27M env-steps/s
-through this pure-XLA pipeline — and 100M+ through the fused-kernel variant
-(``pyflyt_tpu.envs.packed_hover``, same API over a Pallas-packed state; see
-bench.py).
+on device, through this pure-XLA pipeline or the fused-kernel variant
+(``pyflyt_tpu.envs.packed_hover``, same API over a packed state). Rates on
+the GPU: ``python bench.py`` and PERF.md.
 """
 
 import time

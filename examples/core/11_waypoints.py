@@ -1,6 +1,6 @@
 """Drive the waypoint handler directly: chase a ring of fixed waypoints.
 
-TPU-native equivalent of /root/reference/examples/core/11_waypoints.py: the
+Batched-JAX equivalent of /root/reference/examples/core/11_waypoints.py: the
 reference wires a ``WaypointHandler`` to a PID-controlled drone outside any
 gym env. Here the handler is a pure struct — ``reset`` samples (or takes)
 targets, ``update_distances``/``advance_targets`` are jittable transitions —

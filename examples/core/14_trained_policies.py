@@ -1,15 +1,14 @@
 """Load archived trained policies and roll them out deterministically.
 
 Every env family in this repo ships with a trained-policy artifact under
-``docs/artifacts/policies_*`` (orbax checkpoints of the actor-critic
-params; see docs/artifacts/README.md for the full index with eval
-receipts). This example restores two of them with
+``docs/artifacts/policies_*.npz`` (the actor-critic params; see
+docs/artifacts/README.md for the index with eval receipts). This example restores two of them with
 ``pyflyt_tpu.rl.checkpoint.restore_params`` — the counterpart of the
 reference's ``PPO.load(path=".../best_model_*.zip")`` — and evaluates
 them on CPU:
 
-- the Fixedwing-Waypoints solver (round 5: 3.4/4 waypoints per episode,
-  ~75% complete-course over 256 episodes on chip);
+- the Fixedwing-Waypoints solver (3.4/4 waypoints per episode, ~75%
+  complete-course over 256 episodes when it was trained);
 - the rocket LANDING policy for the 13 m rung of the 2%-fuel variant
   (round 5: the stock 1% task is physically unlandable — see
   docs/PERF.md — this policy soft-lands ~2% of episodes and triggers
@@ -36,7 +35,7 @@ from pyflyt_tpu.rl import PPO, PPOConfig, checkpoint  # noqa: E402
 from pyflyt_tpu.rl.ppo import _flat_obs  # noqa: E402
 
 ART = os.path.join(os.path.dirname(__file__), "..", "..", "docs", "artifacts")
-N = 4  # CPU demo size; the archived receipts used 256 episodes on chip
+N = 4  # CPU demo size; the archived receipts used 256 episodes
 
 
 def rollout(env, ppo, params, n, extract):

@@ -1,6 +1,6 @@
 """Compare controller evaluation runs (RL vs. PID experts).
 
-TPU-native equivalent of /root/reference/examples/evaluation/results.py: the
+Batched-JAX equivalent of /root/reference/examples/evaluation/results.py: the
 reference hand-rolls ~600 lines of matplotlib over three hovering-logger
 CSVs; here the same dashboards come from ``pyflyt_tpu.utils.results``.
 

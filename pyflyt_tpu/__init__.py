@@ -1,12 +1,13 @@
-"""PyFlyt-TPU: a TPU-native UAV flight simulation suite for RL research.
+"""pyflyt_tpu: a batched, on-device UAV flight simulation suite for RL
+research.
 
 A from-scratch rebuild of the capabilities of PyFlyt (reference:
 /root/reference, a PyBullet-based UAV simulator) as a batched, pure-JAX
-flight-dynamics engine designed for TPU:
+flight-dynamics engine that runs on a GPU (and, for tests, the CPU):
 
 - state lives in pytrees, physics is pure functions (`jit`/`vmap`/`scan`)
-- thousands of simulation instances step in lockstep on one chip
-- multi-chip scaling via `jax.sharding.Mesh` + `shard_map`
+- thousands of simulation instances step in lockstep on one device
+- multi-device scaling via `jax.sharding.Mesh` + `shard_map`
 - Gymnasium / PettingZoo compatibility shims wrap the functional core
 
 Subpackages:

@@ -33,12 +33,12 @@ from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import integrator
 from pyflyt_tpu.core.state import Body6DoF
-from pyflyt_tpu.envs.base import tree_select
+from pyflyt_tpu.core.struct import tree_select
 from pyflyt_tpu.models import fixedwing, quadx, rocket
 
 
@@ -453,7 +453,7 @@ class Aviary:
         rel = pos[..., None, :] - ob.centers
         local = jnp.einsum(
             "kij,...kj->...ki", jnp.swapaxes(ob.rotations, -1, -2), rel
-        )
+        , precision="highest")
         clamped = jnp.clip(local, -ob.half_extents, ob.half_extents)
         d2 = jnp.sum((local - clamped) ** 2, axis=-1)
         return local, clamped, d2
@@ -495,12 +495,12 @@ class Aviary:
             radius + jnp.min(face_gap, axis=-1),
         )
         n_local = jnp.where(outside[:, None], n_out, n_in)
-        n_world = jnp.einsum("kij,kj->ki", ob.rotations, n_local)
+        n_world = jnp.einsum("kij,kj->ki", ob.rotations, n_local, precision="highest")
         k_best = jnp.argmax(pen)
         pen_b = jnp.maximum(pen[k_best], 0.0)
         hit = pen[k_best] > 0.0
         n_b = n_world[k_best]
-        v_n = jnp.minimum(jnp.dot(body.lin_vel, n_b), 0.0)
+        v_n = jnp.minimum(jnp.dot(body.lin_vel, n_b, precision="highest"), 0.0)
         pos = jnp.where(hit, body.pos + pen_b * n_b, body.pos)
         lin_vel = jnp.where(hit, body.lin_vel - v_n * n_b, body.lin_vel)
         return body.replace(pos=pos, lin_vel=lin_vel)

@@ -3,7 +3,7 @@ renderer.
 
 Replaces /root/reference/PyFlyt/core/abstractions/camera.py, whose
 ``capture_image`` delegates to PyBullet's OpenGL renderer (camera.py:155-178).
-There is no GL on a TPU, so the scene (ground plane + oriented boxes — all
+Here there is no GL context on the device, so the scene (ground plane + oriented boxes — all
 the geometry the reference's vision envs actually contain: race gates, pads,
 targets) is rendered by batched ray-box intersection under ``jit``: one fused
 XLA program produces the RGBA/depth/segmentation triple for a whole env batch
@@ -19,7 +19,7 @@ nonlinear z-buffer value, segmentation is the per-pixel object index
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm
@@ -139,20 +139,19 @@ def _ray_box(origin: Array, dirs: Array, boxes: Boxes) -> tuple[Array, Array]:
     rel = origin - boxes.centers  # (n, 3)
     Rt = jnp.swapaxes(boxes.rotations, -1, -2)  # world→box
     if boxes.rot_index is None:
-        o = jnp.einsum("nij,nj->ni", Rt, rel)
-        d = jnp.einsum("nij,hwj->hwni", Rt, dirs)
+        o = jnp.einsum("nij,nj->ni", Rt, rel, precision="highest")
+        d = jnp.einsum("nij,hwj->hwni", Rt, dirs, precision="highest")
         d = jnp.where(jnp.abs(d) < 1e-9, 1e-9, d)
         inv = 1.0 / d
     else:
         # rotate rays AND take reciprocals once per UNIQUE rotation, then
         # fan out per box (the gather fuses into the slab test; both the
-        # einsum and the divide — the VPU's most expensive op here, f32
-        # divide lowers to a Newton-Raphson chain — shrink n→r: a gate's 4
-        # bars share one rotation, so this is 4× fewer divides)
-        d_u = jnp.einsum("rij,hwj->hwri", Rt, dirs)
+        # einsum and the divide shrink n→r: a gate's 4 bars share one
+        # rotation, so this is 4× fewer divides)
+        d_u = jnp.einsum("rij,hwj->hwri", Rt, dirs, precision="highest")
         d_u = jnp.where(jnp.abs(d_u) < 1e-9, 1e-9, d_u)
         inv = (1.0 / d_u)[:, :, boxes.rot_index, :]
-        o = jnp.einsum("nij,nj->ni", Rt[boxes.rot_index], rel)
+        o = jnp.einsum("nij,nj->ni", Rt[boxes.rot_index], rel, precision="highest")
     t1 = (-boxes.half_extents - o) * inv  # (h, w, n, 3)
     t2 = (boxes.half_extents - o) * inv
     tmin = jnp.max(jnp.minimum(t1, t2), axis=-1)
@@ -236,7 +235,7 @@ def render(
     # over eye-space z when the view axis is known
     z_best = t_best
     if forward is not None:
-        z_best = t_best * jnp.einsum("hwi,i->hw", dirs, forward)
+        z_best = t_best * jnp.einsum("hwi,i->hw", dirs, forward, precision="highest")
     z_clip = jnp.clip(z_best, NEAR, FAR)
     depth = (FAR / (FAR - NEAR)) * (1.0 - NEAR / z_clip)
     depth = jnp.where(jnp.isinf(t_best), 1.0, depth)
@@ -269,7 +268,9 @@ def capture_image(
     if position_offset is not None:
         R_link = pm.euler_to_rotmat(euler)
         R_off = jnp.swapaxes(R_link, -1, -2) if cinematic else R_link
-        eye = position + R_off @ jnp.asarray(position_offset)
+        eye = position + jnp.matmul(
+            R_off, jnp.asarray(position_offset), precision="highest"
+        )
     if is_tracking:
         R_view = pm.euler_to_rotmat(
             _view_euler(euler, camera_angle_degrees, use_gimbal)
@@ -389,7 +390,7 @@ def gate_boxes_segments(
     R = pm.euler_to_rotmat(gate_eulers)  # (g, 3, 3)
     centers = gate_positions[:, None, :] + jnp.einsum(
         "gij,sj->gsi", R, seg_offsets
-    )
+    , precision="highest")
     g = gate_positions.shape[0]
     return Boxes(
         centers=centers.reshape(g * 4, 3),

@@ -15,7 +15,7 @@ fleet integrates in one fused XLA program.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm
@@ -100,7 +100,7 @@ def step(
     R = pm.quat_to_rotmat(body.quat)
 
     # --- linear: v' = v + dt (g + R f_b / m [+ f_w / m])
-    force_w = jnp.einsum("...ij,...j->...i", R, force_body)
+    force_w = jnp.einsum("...ij,...j->...i", R, force_body, precision="highest")
     if force_world is not None:
         force_w = force_w + force_world
     accel = force_w / mass
@@ -109,9 +109,9 @@ def step(
 
     # --- angular (body frame Euler equations, incl. gyroscopic term):
     # ω̇_b = I⁻¹ (τ_b − ω_b × I ω_b)
-    omega_b = jnp.einsum("...ji,...j->...i", R, body.ang_vel)  # R^T ω_w
+    omega_b = jnp.einsum("...ji,...j->...i", R, body.ang_vel, precision="highest")  # R^T ω_w
     if params.full_inertia:
-        I_omega = jnp.einsum("...ij,...j->...i", inertia, omega_b)
+        I_omega = jnp.einsum("...ij,...j->...i", inertia, omega_b, precision="highest")
         gyro = jnp.cross(omega_b, I_omega)
         # closed-form 3x3 inverse (adjugate/det): batched linalg.solve on
         # tiny matrices lowers to scalarized LU and dominates the rocket's
@@ -121,7 +121,7 @@ def step(
         gyro = jnp.cross(omega_b, inertia * omega_b)
         omega_b_dot = (torque_body - gyro) / inertia
     omega_b_new = omega_b + dt * omega_b_dot
-    ang_vel = jnp.einsum("...ij,...j->...i", R, omega_b_new)
+    ang_vel = jnp.einsum("...ij,...j->...i", R, omega_b_new, precision="highest")
 
     # --- positions last (semi-implicit)
     pos = body.pos + dt * lin_vel
@@ -202,7 +202,7 @@ def ground_contact(
         )
     R = pm.quat_to_rotmat(body.quat)
     # world positions of contact points: (..., n, 3)
-    pts_w = body.pos[..., None, :] + jnp.einsum("...ij,...nj->...ni", R, geom.points)
+    pts_w = body.pos[..., None, :] + jnp.einsum("...ij,...nj->...ni", R, geom.points, precision="highest")
     depth = ground_z - pts_w[..., 2]  # >0 means penetrating
     contact = jnp.any(depth > 0.0, axis=-1)
 
@@ -220,7 +220,7 @@ def ground_contact(
     mass = jnp.asarray(params.mass)
     inertia_w_inv = 1.0 / jnp.einsum(
         "...ij,...j->...i", R * R, params.inertia_diag()
-    )  # approx: diag of R I R^T inverse (exact for near-axis-aligned)
+    , precision="highest")  # approx: diag of R I R^T inverse (exact for near-axis-aligned)
 
     # point velocity
     v_pt = body.lin_vel + jnp.cross(body.ang_vel, r_w)
@@ -285,7 +285,7 @@ def _ground_contact_per_point(
     R = pm.quat_to_rotmat(body.quat)
     pts_w = body.pos[..., None, :] + jnp.einsum(
         "...ij,...nj->...ni", R, geom.points
-    )
+    , precision="highest")
     depth = ground_z - pts_w[..., 2]
     pen = depth > 0.0
     contact = jnp.any(pen, axis=-1)
@@ -294,7 +294,7 @@ def _ground_contact_per_point(
     mass = jnp.asarray(params.mass)
     inertia_w_inv = 1.0 / jnp.einsum(
         "...ij,...j->...i", R * R, params.inertia_diag()
-    )
+    , precision="highest")
     n = jnp.asarray([0.0, 0.0, 1.0], dtype=body.pos.dtype)
     xy = jnp.asarray([1.0, 1.0, 0.0], dtype=body.pos.dtype)
 

@@ -3,7 +3,7 @@
 (/root/reference/PyFlyt/core/utils/load_objs.py:8-80 and the usage pattern
 of /root/reference/examples/core/06_spawning_objects.py).
 
-TPU-first design: arbitrary triangle-soup collision queries are
+Accelerator-first design: arbitrary triangle-soup collision queries are
 gather/branch-heavy and hostile to XLA's static-shape compilation model.
 Instead, a mesh is decomposed ONCE at load time (host-side numpy) into a
 static set of boxes, which feed the SAME two device-side consumers the

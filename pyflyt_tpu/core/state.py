@@ -19,7 +19,7 @@ observations always see the state from before the most recent integration.
 
 from __future__ import annotations
 
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 

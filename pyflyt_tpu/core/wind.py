@@ -4,7 +4,7 @@ Re-implements the reference's wind stack as pure pytree callables:
 
 - ``WindFieldClass`` protocol (/root/reference/PyFlyt/core/abstractions/
   base_wind_field.py:9-55): a wind field maps ``(time, positions)`` to wind
-  velocities. Here the callable is a flax struct (a pytree), so its sampled
+  velocities. Here the callable is a struct dataclass (a pytree), so its sampled
   parameters (base wind vector, PRNG key) live inside jitted env state and
   batch transparently under ``vmap``.
 - ``SimpleWind`` (core/wind/simple_wind.py:7-22): log-height thermal + noise.
@@ -25,7 +25,7 @@ from typing import Protocol
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 

@@ -12,7 +12,8 @@ from typing import Any, Protocol
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
+from pyflyt_tpu.core.struct import tree_select  # noqa: F401
 from jax import Array
 
 
@@ -33,15 +34,6 @@ class FunctionalEnv(Protocol):
     def reset(self, key: Array) -> tuple[Any, Any]: ...
 
     def step(self, state: Any, action: Array) -> tuple[Any, StepOut]: ...
-
-
-def tree_select(mask: Array, on_true: Any, on_false: Any) -> Any:
-    """Broadcasting ``where`` over matching pytrees (mask has batch shape)."""
-    def pick(t, f):
-        m = mask.reshape(mask.shape + (1,) * (jnp.ndim(f) - mask.ndim))
-        return jnp.where(m, t, f)
-
-    return jax.tree.map(pick, on_true, on_false)
 
 
 # ---------------------------------------------------------------------------

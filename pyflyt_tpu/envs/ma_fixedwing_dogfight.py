@@ -31,7 +31,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm
@@ -211,10 +211,10 @@ class MAFixedwingDogfightEnv:
         # opponent relative state (ma_fixedwing_dogfight_env.py:209-237)
         opp_ang_vel = attitudes[::-1, 0]
         opp_ang_pos = attitudes[::-1, 1] - attitudes[:, 1]
-        ground_vel = jnp.einsum("nij,nj->ni", rotation, attitudes[:, 2])
-        opp_vel_in_self = jnp.einsum("nj,nji->ni", ground_vel[::-1], rotation)
+        ground_vel = jnp.einsum("nij,nj->ni", rotation, attitudes[:, 2], precision="highest")
+        opp_vel_in_self = jnp.einsum("nj,nji->ni", ground_vel[::-1], rotation, precision="highest")
         opp_lin_vel = opp_vel_in_self - attitudes[:, 2]
-        opp_lin_pos = jnp.einsum("nj,nji->ni", separation, rotation)
+        opp_lin_pos = jnp.einsum("nj,nji->ni", separation, rotation, precision="highest")
         opponent = jnp.stack(
             [opp_ang_vel, opp_ang_pos, opp_lin_vel, opp_lin_pos], axis=1
         )

@@ -1,12 +1,10 @@
-"""Fused-kernel MA Fixedwing Dogfight: one DRONE per lane element.
+"""Fused-kernel MA Fixedwing Dogfight: one ARENA per lane element.
 
-Fast-path wrapper around ``ops/pallas_dogfight.py``: 2N drones of ``N``
-arenas live in a folded ``(72, 8, 2N/8)`` state — the single
-ops/pallas_fixedwing.py bank in rows 0-52 plus 13 per-drone engagement/
-episode rows, with every arena's drone 0 in sublanes 0-3 and its opponent 4
-sublanes away (the kernel's partner exchange is one sublane roll; see
-ops/pallas_dogfight.py for why this beats the old two-banks-per-lane
-layout). ``step`` runs the WHOLE dogfight agent step (4 aviary steps x 2
+Fast-path wrapper around ``ops/pallas_dogfight.py``: ``N`` arenas live in a
+folded ``(132, 8, N/8)`` state — per drone, the single
+ops/pallas_fixedwing.py bank plus 13 engagement/episode rows, drone 0's bank
+in rows 0-65 and drone 1's in rows 66-131 (see ops/pallas_dogfight.py).
+``step`` runs the WHOLE dogfight agent step (4 aviary steps x 2
 physics iterations + engagement rewards with the reference's memo lag +
 termination bookkeeping) in ONE ``pallas_call``;
 the 30-dim observation pair is assembled here in XLA from the final packed
@@ -15,7 +13,7 @@ every aviary step but only the last one is ever observed).
 
 Semantics match ``MAFixedwingDogfightEnv`` exactly with noise off (asserted
 in tests/test_pallas_dogfight.py); with noise on the booster-noise PRNG
-stream differs (kernel-internal PRNG), same distribution.
+stream differs (kernel counter-hash noise), same distribution.
 
 Reference: /root/reference/PyFlyt/pz_envs/fixedwing_envs/
 ma_fixedwing_dogfight_env.py (see envs/ma_fixedwing_dogfight.py for the
@@ -28,7 +26,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.envs.ma_fixedwing_dogfight import (
@@ -43,11 +41,16 @@ from pyflyt_tpu.ops import pallas_fixedwing as pfw
 
 @struct.dataclass
 class PackedDogfightEnvState:
-    packed: Array  # (pdg.ROWS, 8, 2N/8)
+    packed: Array  # (pdg.ROWS, 8, N/8)
     key: Array
     alive: Array  # (N, 2) bool
     current_actions: Array  # (N, 2, A)
     past_actions: Array  # (N, 2, A)
+
+
+def _pair(flat: Array, row: int) -> Array:
+    """Per-drone row ``row`` of both banks -> (N, 2)."""
+    return jnp.stack([flat[row], flat[pdg.DR + row]], axis=1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,77 +68,63 @@ class PackedMAFixedwingDogfightEnv:
 
     # ----- layout conversions ---------------------------------------------
     def pack_env_state(self, st: DogfightState) -> Array:
-        """Batched (N,) DogfightState -> packed (ROWS, 8, 2N/8) array.
-
-        Drone axis ordering: flat index m*N + a (all drone 0s, then all
-        drone 1s). The row-major fold onto 8 sublanes then puts drone m of
-        arena a exactly 4 sublanes from drone 1-m of the same arena — the
-        kernel's partner-roll invariant."""
+        """Batched (N,) DogfightState -> packed (ROWS, 8, N/8) array: drone
+        m's bank in rows [m * DR, (m + 1) * DR)."""
         n = st.health.shape[0]
-        # (N, 2) drone pytree -> flat (2N,) with drones [d0s..., d1s...]
-        drones = jax.tree.map(
-            lambda x: jnp.concatenate([x[:, 0], x[:, 1]]), st.drones
-        )
-        bank = pfw.pack_state(drones).reshape(pfw.ROWS, 2 * n)[: pdg.D_ROWS]
-        f32 = bank.dtype
-
-        def dup(x):  # arena-shared value -> both drones
-            return jnp.tile(x, 2)
-
-        def per_drone(x):  # (N, 2) -> (2N,)
-            return jnp.concatenate([x[:, 0], x[:, 1]])
-
-        zeros = jnp.zeros((2 * n,), f32)
-        env_rows = jnp.stack(
-            [
-                per_drone(st.health),
-                per_drone(st.current_angles),
-                per_drone(st.prev_angles),
-                per_drone(st.current_hits.astype(f32)),
-                dup(st.current_distance),
-                dup(st.prev_distance),
-                zeros,  # term
-                zeros,  # trunc
-                zeros,  # reward
-                zeros,  # collf
-                zeros,  # oobf
-                zeros,  # other_dead
-                dup(st.step_count.astype(f32)),
-            ],
-            axis=0,
-        )
-        pad = pdg.ROWS - pdg.D_ROWS - env_rows.shape[0]
-        packed = jnp.concatenate(
-            [bank, env_rows, jnp.zeros((pad, 2 * n), f32)], axis=0
-        )
-        return packed.reshape(pdg.ROWS, pdg.SUBLANES, 2 * n // pdg.SUBLANES)
+        zeros = jnp.zeros((n,), jnp.float32)
+        banks = []
+        for m in range(2):
+            drone = jax.tree.map(lambda x: x[:, m], st.drones)
+            bank = pfw.pack_state(drone).reshape(pfw.ROWS, n)[: pdg.D_ROWS]
+            f32 = bank.dtype
+            env_rows = jnp.stack(
+                [
+                    st.health[:, m],
+                    st.current_angles[:, m],
+                    st.prev_angles[:, m],
+                    st.current_hits[:, m].astype(f32),
+                    st.current_distance,
+                    st.prev_distance,
+                    zeros,  # term
+                    zeros,  # trunc
+                    zeros,  # reward
+                    zeros,  # collf
+                    zeros,  # oobf
+                    zeros,  # other_dead
+                    st.step_count.astype(f32),
+                ],
+                axis=0,
+            )
+            banks += [bank, env_rows]
+        packed = jnp.concatenate(banks, axis=0)
+        return packed.reshape(pdg.ROWS, pdg.SUBLANES, n // pdg.SUBLANES)
 
     # ----- observation assembly (ma_fixedwing_dogfight_env.py:164-248) -----
     def _obs(self, flat: Array, past_actions: Array) -> Array:
-        """(ROWS, 2N) flat rows -> (N, 2, 30) observation pair, identical
+        """(ROWS, N) flat rows -> (N, 2, 30) observation pair, identical
         math to MAFixedwingDogfightEnv._agent_states on the final aviary
         step."""
-        n = flat.shape[1] // 2
+        n = flat.shape[1]
         view = jnp.stack(
             [
-                flat[pfw._VIEW : pfw._VIEW + 12, :n].T,
-                flat[pfw._VIEW : pfw._VIEW + 12, n:].T,
+                flat[m * pdg.DR + pfw._VIEW : m * pdg.DR + pfw._VIEW + 12].T
+                for m in range(2)
             ],
             axis=1,
         ).reshape(n, 2, 4, 3)
-        health = jnp.stack([flat[pdg._HP, :n], flat[pdg._HP, n:]], axis=1)
+        health = _pair(flat, pdg._HP)
         rotation, forward = compute_rotation_forward(view[:, :, 1])
         gun_pos = view[:, :, 3] - forward * 0.35
         attitudes = view.at[:, :, 3].set(gun_pos)
         separation = gun_pos[:, ::-1] - gun_pos
         opp_ang_vel = attitudes[:, ::-1, 0]
         opp_ang_pos = attitudes[:, ::-1, 1] - attitudes[:, :, 1]
-        ground_vel = jnp.einsum("nmij,nmj->nmi", rotation, attitudes[:, :, 2])
+        ground_vel = jnp.einsum("nmij,nmj->nmi", rotation, attitudes[:, :, 2], precision="highest")
         opp_vel_in_self = jnp.einsum(
             "nmj,nmji->nmi", ground_vel[:, ::-1], rotation
-        )
+        , precision="highest")
         opp_lin_vel = opp_vel_in_self - attitudes[:, :, 2]
-        opp_lin_pos = jnp.einsum("nmj,nmji->nmi", separation, rotation)
+        opp_lin_pos = jnp.einsum("nmj,nmji->nmi", separation, rotation, precision="highest")
         opponent = jnp.stack(
             [opp_ang_vel, opp_ang_pos, opp_lin_vel, opp_lin_pos], axis=2
         )
@@ -176,22 +165,18 @@ class PackedMAFixedwingDogfightEnv:
         seed = jax.random.randint(sub, (), 0, 2**31 - 1)
         flat = state.packed.reshape(pdg.ROWS, -1)
         f32 = flat.dtype
-        n = flat.shape[1]
 
         agents_mask = state.alive
         actions = jnp.asarray(actions, dtype=f32)
         actions = jnp.where(agents_mask[..., None], actions, 0.0)
-        # setpoint rows (padded to the 6-row bank slot) + other-dead flag;
-        # drone order [d0s..., d1s...] matches pack_env_state
-        sp = jnp.concatenate([actions[:, 0], actions[:, 1]])  # (2N, A)
-        a_dim = sp.shape[-1]
-        flat = flat.at[pfw._SP : pfw._SP + a_dim].set(sp.T)
-        if a_dim < 6:
-            flat = flat.at[pfw._SP + a_dim : pfw._SP + 6].set(0.0)
-        other_dead = jnp.tile(
-            (jnp.sum(agents_mask, axis=1) < 2).astype(f32), 2
-        )
-        flat = flat.at[pdg._OTHD].set(other_dead)
+        # setpoint rows (padded to the 6-row bank slot) + other-dead flag
+        a_dim = actions.shape[-1]
+        other_dead = (jnp.sum(agents_mask, axis=1) < 2).astype(f32)
+        for m in range(2):
+            sp = m * pdg.DR + pfw._SP
+            flat = flat.at[sp : sp + a_dim].set(actions[:, m].T)
+            flat = flat.at[sp + a_dim : sp + 6].set(0.0)
+            flat = flat.at[m * pdg.DR + pdg._OTHD].set(other_dead)
 
         out = pdg.packed_dogfight_step(
             flat.reshape(pdg.ROWS, pdg.SUBLANES, -1),
@@ -209,10 +194,7 @@ class PackedMAFixedwingDogfightEnv:
             sparse=b.sparse_reward,
         )
         oflat = out.reshape(pdg.ROWS, -1)
-        narena = oflat.shape[1] // 2
-
-        def pair(row):  # (2N,) flat row -> (N, 2)
-            return jnp.stack([oflat[row, :narena], oflat[row, narena:]], axis=1)
+        pair = lambda row: _pair(oflat, row)
 
         term = pair(pdg._TERM) > 0.5
         trunc = pair(pdg._TRUNC) > 0.5

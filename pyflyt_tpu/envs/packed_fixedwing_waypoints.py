@@ -10,7 +10,7 @@ termination/truncation, done-freeze) register-resident in one
 
 Semantics match ``FixedwingWaypointsEnv`` exactly with noise off (asserted in
 tests/test_pallas_fixedwing.py); with noise on the motor-noise PRNG stream
-differs (kernel-internal PRNG), same distribution.
+differs (kernel counter-hash normals), same distribution.
 
 Reference semantics covered (cited against the upstream tree):
 - agent-step loop: fixedwing_base_env.py:170-205
@@ -34,7 +34,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm

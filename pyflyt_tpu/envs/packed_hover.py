@@ -1,4 +1,4 @@
-"""Packed-state QuadX Hover env: the whole agent step is ONE TPU kernel.
+"""Packed-state QuadX Hover env: the whole agent step is ONE kernel.
 
 The default hover pipeline (envs/quadx_hover.py) interleaves the Pallas/XLA
 drone step with XLA-side reward/termination logic and packs/unpacks the
@@ -11,7 +11,7 @@ observation from packed rows.
 
 Semantics match ``QuadXHoverEnv`` exactly with noise off (asserted in
 tests/test_packed_hover.py); with noise on the motor-noise PRNG stream
-differs (kernel-internal PRNG), same distribution. Supports the hover
+differs (kernel counter-hash normals), same distribution. Supports the hover
 task's config surface on the fast-path envelope: modes 0/7/8, ENU, quaternion
 or euler observations, dense or sparse reward.
 
@@ -36,7 +36,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm

@@ -1,4 +1,4 @@
-"""Packed-state QuadX Waypoints env: the whole agent step is ONE TPU kernel.
+"""Packed-state QuadX Waypoints env: the whole agent step is ONE kernel.
 
 The quadx-hover treatment (envs/packed_hover.py) applied to the waypoints
 task: ``N`` envs live in the folded ``(rows_for_waypoints(mode), 8, N/8)``
@@ -12,7 +12,7 @@ truncation, collision/out-of-bounds termination, done-freeze) in one
 
 Semantics match ``QuadXWaypointsEnv`` exactly with noise off (asserted in
 tests/test_packed_waypoints.py); with noise on the motor-noise PRNG stream
-differs (kernel-internal PRNG), same distribution. Envelope: modes 0/7/8,
+differs (kernel counter-hash normals), same distribution. Envelope: modes 0/7/8,
 ENU, ``use_yaw_targets=False`` (the stock configuration; yaw-target deltas
 would need 4-wide delta rows).
 
@@ -27,7 +27,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm

@@ -11,7 +11,7 @@ pad-relative distance) is assembled here in XLA from the final packed rows
 
 Semantics match ``RocketLandingEnv`` exactly with noise off (asserted in
 tests/test_pallas_rocket.py); with noise on the booster-noise PRNG stream
-differs (kernel-internal PRNG), same distribution.
+differs (kernel counter-hash normals), same distribution.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm
@@ -106,7 +106,7 @@ class PackedRocketLandingEnv:
         )
         rotation = pm.quat_to_rotmat(quat)
         distance = g(prk._DIST, 3)
-        rotated_distance = jnp.einsum("...j,...ji->...i", distance, rotation)
+        rotated_distance = jnp.einsum("...j,...ji->...i", distance, rotation, precision="highest")
         return jnp.concatenate(
             [
                 view[:, 0],

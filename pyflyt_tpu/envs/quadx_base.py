@@ -22,7 +22,7 @@ from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm
@@ -60,9 +60,9 @@ class QuadXBaseEnv:
     noisy_motors: bool = True
     orn_conv: str = "ENU_FLU"
     drone_model: str = "cf2x"
-    # route the aviary step through the fused Pallas TPU kernel
+    # route the aviary step through the fused Pallas kernel
     # (ops/pallas_quadx.py — modes 0/8, ENU, detection-grade contact; the
-    # motor-noise PRNG stream differs from the XLA path, physics identical)
+    # motor-noise stream differs from the XLA path, physics identical)
     use_pallas: bool = False
 
     def __post_init__(self):

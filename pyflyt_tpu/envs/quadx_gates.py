@@ -33,7 +33,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import camera as cam
@@ -107,8 +107,10 @@ class QuadXGatesEnv(QuadXBaseEnv):
             )
             old_mat = pm.euler_to_rotmat(gate_ang)
             new_mat = pm.euler_to_rotmat(ang)
-            delta = new_mat @ old_mat @ jnp.stack(
-                [jnp.zeros_like(dist), dist, vertical_offset]
+            offset = jnp.stack([jnp.zeros_like(dist), dist, vertical_offset])
+            delta = jnp.matmul(
+                jnp.matmul(new_mat, old_mat, precision="highest"), offset,
+                precision="highest",
             )
             gate_pos = gate_pos + delta
             gate_ang = gate_ang + ang
@@ -166,7 +168,7 @@ class QuadXGatesEnv(QuadXBaseEnv):
         R = pm.quat_to_rotmat(pm.euler_to_quat(view[1, :]))
         deltas = jnp.einsum(
             "ji,nj->ni", R, state.gate_positions - view[3, :]
-        )
+        , precision="highest")
         current = jnp.take_along_axis(deltas, state.idx[None, None], axis=0)[0]
         return deltas, jnp.linalg.norm(current)
 

@@ -31,7 +31,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm
@@ -58,11 +58,11 @@ class PackedAutoResetState:
     """Packed-layout twin of envs/base.py::AutoResetState: the live batch
     plus a cache of pre-computed resets, refreshed every ``refresh`` steps
     under a ``lax.cond`` so the per-step reset recompute (a full vmapped
-    base.reset + pack_state — most of the packed rollout cost at 8192 envs,
-    docs/artifacts/ppo_scale_probe_r4_tpu.jsonl) amortizes to 1/refresh.
+    base.reset + pack_state — most of the packed rollout cost) amortizes to
+    1/refresh.
     Same deviation class as the XLA cached path: an env finishing twice in
     one refresh period restarts from the same initial state; its trajectory
-    still diverges through the live per-step kernel PRNG stream."""
+    still diverges through the live per-step kernel noise stream."""
 
     env_state: PackedModHoverState
     cache_state: PackedModHoverState
@@ -149,7 +149,7 @@ class PackedQuadXModHoveringEnv:
         n = keys.shape[0]
         assert n % pq.SUBLANES == 0, (
             f"the packed env folds the batch to ({pq.SUBLANES}, N/"
-            f"{pq.SUBLANES}) vreg tiles: batch size must be divisible by "
+            f"{pq.SUBLANES}) rows: batch size must be divisible by "
             f"{pq.SUBLANES}, got {n} (e.g. round --num_envs/--eval_episodes "
             f"up, or use the XLA QuadXModHoveringEnv)"
         )

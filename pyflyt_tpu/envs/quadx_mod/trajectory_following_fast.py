@@ -34,7 +34,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm
@@ -266,7 +266,7 @@ class QuadXTrajectoryFollowingFastEnv:
 
         speed = jnp.linalg.norm(lin_vel)
         leg = jnp.linalg.norm(delta_pos)
-        cos = jnp.dot(lin_vel, delta_pos) / jnp.maximum(speed * leg, 1e-12)
+        cos = jnp.dot(lin_vel, delta_pos, precision="highest") / jnp.maximum(speed * leg, 1e-12)
         angle_new = jnp.where(
             leg == 0.0, 0.0, jnp.arccos(jnp.clip(cos, -1.0, 1.0))
         )

@@ -16,7 +16,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import math as pm
@@ -54,7 +54,7 @@ class RocketLandingEnv(RocketBaseEnv):
         rotation = pm.quat_to_rotmat(pm.euler_to_quat(view[..., 1, :]))
         rotated_distance = jnp.einsum(
             "...j,...ji->...i", state.distance, rotation
-        )
+        , precision="highest")
         return jnp.concatenate(
             [
                 self.attitude_obs(state),

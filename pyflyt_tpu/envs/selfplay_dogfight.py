@@ -3,7 +3,7 @@
 The reference ships the dogfight as a PettingZoo env with NO training
 pipeline (/root/reference/PyFlyt/pz_envs/fixedwing_envs/
 ma_fixedwing_dogfight_env.py); this adapter makes the fused-kernel
-dogfight (envs/packed_dogfight.py, ~45M agent-steps/s on v5e) trainable
+dogfight (envs/packed_dogfight.py) trainable
 by the standard single-agent PPO via SELF-PLAY: both drones of every
 arena are rows of one flat agent batch driven by the same policy.
 
@@ -39,7 +39,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.envs.base import StepOut
@@ -133,10 +133,9 @@ class SelfPlayDogfightEnv:
         )
 
     def _splice(self, inner, reset_inner, match_done):
-        """done arenas take ``reset_inner``'s entries; flat drone order is
-        [d0 arenas..., d1 arenas...]; the live key stream stays."""
-        mask2n = jnp.concatenate([match_done, match_done])
-        maskf = mask2n.astype(inner.packed.dtype).reshape(
+        """done arenas take ``reset_inner``'s entries (one arena per packed
+        lane element); the live key stream stays."""
+        maskf = match_done.astype(inner.packed.dtype).reshape(
             1, inner.packed.shape[1], -1
         )
         return PackedDogfightEnvState(

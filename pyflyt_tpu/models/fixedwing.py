@@ -1,6 +1,6 @@
 """Fixedwing (small airplane / acrowing) vehicle: aero dynamics + control map.
 
-TPU-native re-implementation of /root/reference/PyFlyt/core/drones/fixedwing.py
+Batched-JAX re-implementation of /root/reference/PyFlyt/core/drones/fixedwing.py
 (the same class also serves the "acrowing" parameter set — the reference has
 no separate acrowing drone class). Five lifting surfaces + one puller motor on
 a composite rigid body assembled from the URDF's point-mass links.
@@ -29,7 +29,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import integrator
@@ -145,7 +145,7 @@ def _base_kinematics(
 ) -> tuple[Array, Array, Array]:
     """(R, base_pos_world, base_vel_world) from the CoM state."""
     R = pm.quat_to_rotmat(body.quat)
-    r = jnp.einsum("...ij,...j->...i", R, params.com_offset)
+    r = jnp.einsum("...ij,...j->...i", R, params.com_offset, precision="highest")
     base_pos = body.pos - r
     base_vel = body.lin_vel + jnp.cross(body.ang_vel, -r)
     return R, base_pos, base_vel
@@ -162,20 +162,20 @@ def update_state(
     surface local velocities (fixedwing.py:249-276,
     lifting_surfaces.py:68-104)."""
     R, base_pos, base_vel = _base_kinematics(body, params)
-    lin_vel_b = jnp.einsum("...ji,...j->...i", R, base_vel)
-    ang_vel_b = jnp.einsum("...ji,...j->...i", R, body.ang_vel)
+    lin_vel_b = jnp.einsum("...ji,...j->...i", R, base_vel, precision="highest")
+    ang_vel_b = jnp.einsum("...ji,...j->...i", R, body.ang_vel, precision="highest")
     euler = pm.quat_to_euler(body.quat)
     view = jnp.stack([ang_vel_b, euler, lin_vel_b, base_pos], axis=-2)
 
     # world velocity of each surface link: v_com + ω × R(r_s - r_com)
     r_s = jnp.einsum(
         "...ij,...nj->...ni", R, params.surfaces.positions - params.com_offset
-    )
+    , precision="highest")
     v_s = body.lin_vel[..., None, :] + jnp.cross(body.ang_vel[..., None, :], r_s)
     if wind_fn is not None:
         pos_s = body.pos[..., None, :] + r_s
         v_s = v_s - wind_fn(physics_steps, pos_s)
-    local = jnp.einsum("...ji,...nj->...ni", R, v_s)
+    local = jnp.einsum("...ji,...nj->...ni", R, v_s, precision="highest")
     return FixedwingRead(view=view, surface_local_vel=local)
 
 
@@ -196,7 +196,7 @@ def init_state(
     batch = start_pos.shape[:-1]
     quat = pm.euler_to_quat(start_orn)
     R = pm.quat_to_rotmat(quat)
-    com_pos = start_pos + jnp.einsum("...ij,...j->...i", R, params.com_offset)
+    com_pos = start_pos + jnp.einsum("...ij,...j->...i", R, params.com_offset, precision="highest")
     if start_vel is None:
         vel = jnp.broadcast_to(
             jnp.asarray(cfg.starting_velocity, dtype=cfg.dtype), start_pos.shape

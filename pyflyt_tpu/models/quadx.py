@@ -1,6 +1,6 @@
 """QuadX (CrazyFlie 2.x) quadrotor: dynamics + cascaded flight controller.
 
-TPU-native re-implementation of /root/reference/PyFlyt/core/drones/quadx.py.
+Batched-JAX re-implementation of /root/reference/PyFlyt/core/drones/quadx.py.
 The per-drone Python object becomes a ``QuadXState`` pytree and three pure
 functions (``update_control`` / ``physics_iter`` / ``step``); arbitrary batch
 dimensions stack on the left so one jitted program steps a whole fleet.
@@ -26,7 +26,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import integrator
@@ -220,8 +220,8 @@ def update_state(
 ) -> QuadXRead:
     """Computes the read snapshot from the raw body state (quadx.py:583-633)."""
     R = pm.quat_to_rotmat(body.quat)  # body->world
-    lin_vel_b = jnp.einsum("...ji,...j->...i", R, body.lin_vel)
-    ang_vel_b = jnp.einsum("...ji,...j->...i", R, body.ang_vel)
+    lin_vel_b = jnp.einsum("...ji,...j->...i", R, body.lin_vel, precision="highest")
+    ang_vel_b = jnp.einsum("...ji,...j->...i", R, body.ang_vel, precision="highest")
     euler = pm.quat_to_euler(body.quat)
 
     if cfg.orn_conv == "NED_FRD":
@@ -235,7 +235,7 @@ def update_state(
     view = jnp.stack([ang_vel, ang_pos, lin_vel, lin_pos], axis=-2)
 
     air_vel = body.lin_vel if wind_vel is None else body.lin_vel - wind_vel
-    drag_local_vel = jnp.einsum("...ji,...j->...i", R, air_vel)
+    drag_local_vel = jnp.einsum("...ji,...j->...i", R, air_vel, precision="highest")
     return QuadXRead(view=view, ang_vel_body=ang_vel_b, drag_local_vel=drag_local_vel)
 
 
@@ -374,10 +374,10 @@ def update_control(
     if mode == 8:
         pwm = sp
     elif mode == 9:
-        pwm = jnp.einsum("ij,...j->...i", params.motor_map, sp)
+        pwm = jnp.einsum("ij,...j->...i", params.motor_map, sp, precision="highest")
     elif mode == 10:
         cmd = ga_pid_step(view, sp)
-        pwm = jnp.einsum("ij,...j->...i", params.motor_map, cmd)
+        pwm = jnp.einsum("ij,...j->...i", params.motor_map, cmd, precision="highest")
     else:
         # ------ attitude cascade
         if mode in (0, 2):
@@ -442,7 +442,7 @@ def update_control(
         z = jnp.clip(z, 0.0, 1.0)
 
         cmd = jnp.concatenate([a, z[..., None]], axis=-1)
-        pwm = jnp.einsum("ij,...j->...i", params.motor_map, cmd)
+        pwm = jnp.einsum("ij,...j->...i", params.motor_map, cmd, precision="highest")
 
     pwm = saturation_rescale(pwm, cfg.min_pwm, cfg.max_pwm)
     return state.replace(pwm=pwm, pids=pids)

@@ -1,6 +1,6 @@
 """Rocket (1:10 Falcon-9-like booster) vehicle model.
 
-TPU-native re-implementation of /root/reference/PyFlyt/core/drones/rocket.py:
+Batched-JAX re-implementation of /root/reference/PyFlyt/core/drones/rocket.py:
 quadratic body drag + 4 grid-fin lifting surfaces + a fueled, gimballed
 booster on a composite rigid body whose mass/CoM/inertia track the remaining
 fuel each physics step (the reference mutates the fuel-tank link via
@@ -21,7 +21,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.core import integrator
@@ -193,7 +193,7 @@ class RocketState:
 
 def _com_kinematics(body: Body6DoF, com: Array):
     R = pm.quat_to_rotmat(body.quat)
-    r = jnp.einsum("...ij,...j->...i", R, com)
+    r = jnp.einsum("...ij,...j->...i", R, com, precision="highest")
     base_pos = body.pos - r
     base_vel = body.lin_vel + jnp.cross(body.ang_vel, -r)
     return R, base_pos, base_vel
@@ -209,17 +209,17 @@ def update_state(
 ) -> RocketRead:
     """Read snapshot (rocket.py:280-314 + surface/body state updates)."""
     R, base_pos, base_vel = _com_kinematics(body, com)
-    lin_vel_b = jnp.einsum("...ji,...j->...i", R, base_vel)
-    ang_vel_b = jnp.einsum("...ji,...j->...i", R, body.ang_vel)
+    lin_vel_b = jnp.einsum("...ji,...j->...i", R, base_vel, precision="highest")
+    ang_vel_b = jnp.einsum("...ji,...j->...i", R, body.ang_vel, precision="highest")
     euler = pm.quat_to_euler(body.quat)
     view = jnp.stack([ang_vel_b, euler, lin_vel_b, base_pos], axis=-2)
 
     def local_vel_at(points: Array) -> Array:
-        r = jnp.einsum("...ij,...nj->...ni", R, points - com[..., None, :])
+        r = jnp.einsum("...ij,...nj->...ni", R, points - com[..., None, :], precision="highest")
         v = body.lin_vel[..., None, :] + jnp.cross(body.ang_vel[..., None, :], r)
         if wind_fn is not None:
             v = v - wind_fn(physics_steps, body.pos[..., None, :] + r)
-        return jnp.einsum("...ji,...nj->...ni", R, v)
+        return jnp.einsum("...ji,...nj->...ni", R, v, precision="highest")
 
     finlet_local = local_vel_at(params.finlets.positions)
     drag_local = local_vel_at(params.drag_position[None, :])[..., 0, :]
@@ -253,7 +253,7 @@ def init_state(
 
     quat = pm.euler_to_quat(start_orn)
     R = pm.quat_to_rotmat(quat)
-    com_pos = start_pos + jnp.einsum("...ij,...j->...i", R, com)
+    com_pos = start_pos + jnp.einsum("...ij,...j->...i", R, com, precision="highest")
     lin_vel = (
         jnp.zeros_like(start_pos)
         if start_lin_vel is None
@@ -286,7 +286,7 @@ def update_control(
 ) -> RocketState:
     """Finlet mix + passthrough (rocket.py:240-255, mode 0)."""
     finlet_cmd = jnp.clip(
-        jnp.einsum("ij,...j->...i", params.finlet_map, state.setpoint[..., :3]),
+        jnp.einsum("ij,...j->...i", params.finlet_map, state.setpoint[..., :3], precision="highest"),
         -1.0,
         1.0,
     )
@@ -358,7 +358,7 @@ def physics_iter(
     )
     thrust_dir = jnp.einsum(
         "...nij,...nj->...ni", rot, params.booster.thrust_unit
-    )
+    , precision="highest")
     f_boost_n = thrust[..., None] * thrust_dir  # (..., 1, 3)
     mass, com, inertia = mass_properties(params, fuel_mass, fuel_inertia)
     t_boost = jnp.cross(params.booster.positions - com[..., None, :], f_boost_n)
@@ -381,7 +381,7 @@ def physics_iter(
     # contact against ground plane + raised landing pad
     R = pm.quat_to_rotmat(body.quat)
     pts_b = params.contact_points - com[..., None, :]
-    pts_w = body.pos[..., None, :] + jnp.einsum("...ij,...nj->...ni", R, pts_b)
+    pts_w = body.pos[..., None, :] + jnp.einsum("...ij,...nj->...ni", R, pts_b, precision="highest")
     heights, on_pad = _pad_ground_heights(pts_w, pad_position)
     penetrating = (heights - pts_w[..., 2]) > 0.0
     pad_contact = jnp.any(on_pad & penetrating, axis=-1)

@@ -11,7 +11,7 @@ quadx.py:174-182) it contributes no torque, otherwise ``r × F`` applies.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 

@@ -88,6 +88,6 @@ def ga_pid_step(state: Array, setpoint: Array) -> Array:
     k = jnp.asarray(_K, dtype=x.dtype)[quadrant]  # (..., 4, 12)
 
     error = x - xss
-    out = -jnp.einsum("...ij,...j->...i", k, error) + jnp.asarray(_USS, dtype=x.dtype)
+    out = -jnp.einsum("...ij,...j->...i", k, error, precision="highest") + jnp.asarray(_USS, dtype=x.dtype)
     # reorder [T, roll, pitch, yaw] -> RPYT (ga_pid.py:85)
     return jnp.stack([out[..., 1], out[..., 2], out[..., 3], out[..., 0]], axis=-1)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 
@@ -89,4 +89,4 @@ def compute_rotation(
     eye = jnp.eye(3, dtype=state.dtype)
     r1 = eye + jnp.sin(a1) * params.w1 + 2.0 * jnp.sin(a1 / 2.0) ** 2 * params.w1_squared
     r2 = eye + jnp.sin(a2) * params.w2 + 2.0 * jnp.sin(a2 / 2.0) ** 2 * params.w2_squared
-    return state, r1 @ r2
+    return state, jnp.matmul(r1, r2, precision="highest")

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 

@@ -1,22 +1,14 @@
-"""Pallas TPU kernel: fused 2-agent Fixedwing dogfight agent step.
+"""Pallas kernel: fused 2-agent Fixedwing dogfight agent step.
 
-Layout (round 3, the perf pass VERDICT r2 item 5 asked for): one DRONE per
-lane element — 2N drones of N arenas fold to ``(ROWS, 8, 2N/8)`` with drone
-0 of every arena in sublanes 0-3 and its opponent in sublanes 4-7, so the
-partner's registers are exactly a sublane roll by 4 away. The previous
-arena-per-element layout stacked BOTH 53-row drone banks in one lane
-(live-register set ~2x the single-drone fixedwing kernel's, ~21 zero pad
-rows out of 128), and measured only 2.2x its XLA path (8.2M agent-steps/s,
-v5e) while the single-bank fixedwing kernel held 6.8x — i.e. it was bound
-by register pressure, not arithmetic. This layout runs ONE bank over all
-2N drones (the engagement math is symmetric per drone once partner values
-are rolled in: own angle = f(partner_gun - own_gun, own_fwd) for both
-sides) at the fixedwing kernel's live set plus 13 memo rows; the only
-cross-drone traffic is 8 sublane rolls per aviary step (partner gun x3,
-pos x3, hit, and the arena-shared values are stored per drone).
+Layout: one ARENA per folded lane element (one arena per thread on the GPU).
+Drone 0's bank sits in rows ``[0, DR)`` and drone 1's in ``[DR, 2 DR)``: the
+single-drone ops/pallas_fixedwing.py bank (53 rows) plus 13 per-drone
+engagement/episode rows each. The partner's value of any register is the
+same row of the other bank, so the engagement math needs no data exchange
+between threads.
 
-One kernel call still runs the WHOLE dogfight agent step (``inner_steps``
-aviary steps x ``physics_control_ratio`` physics iterations, engagement
+One kernel call runs the WHOLE dogfight agent step (``inner_steps`` aviary
+steps x ``physics_control_ratio`` physics iterations per drone, engagement
 rewards with the reference's one-step memo lag, termination/truncation
 accumulation).
 
@@ -38,9 +30,9 @@ itself built against
   observation cache of the reference is only ever read after the last inner
   step, so only health/angle/distance memos live in kernel registers.
 
-Deviations (same class as the quadx/fixedwing kernels): kernel-internal PRNG
-for motor noise (same distribution, different stream); detection-grade ground
-contact; polynomial atan2/asin (and acos = pi/2 - asin for the gun angle).
+Deviations (same class as the quadx/fixedwing kernels): counter-hash noise
+for the motors (same distribution, different stream than threefry);
+detection-grade ground contact; the gun angle is acos as pi/2 - asin.
 
 Parity with the vmapped XLA env (noise off) is asserted in
 tests/test_pallas_dogfight.py.
@@ -60,7 +52,7 @@ from pyflyt_tpu.ops import pallas_math as pmk
 SUBLANES = 8
 D_ROWS = 53  # the drone bank: pfw rows _POS.._CON (52) inclusive
 
-# ---- per-drone engagement/episode rows (partner-shared values duplicated)
+# ---- per-drone engagement/episode rows (arena-shared values duplicated)
 _HP = D_ROWS      # own health
 _ANG = _HP + 1    # own current_angles memo
 _PANG = _ANG + 1  # own prev_angles memo (one aviary step older)
@@ -75,16 +67,12 @@ _OOBF = _COLLF + 1  # any-out-of-bounds info flag (this step)
 _OTHD = _OOBF + 1   # other-dead flag (wrapper-computed at step start)
 _STEPC = _OTHD + 1  # agent step count (pre-increment)
 
-ROWS = 72  # 66 used, padded to a multiple of 8 sublanes
-assert _STEPC + 1 <= ROWS
+DR = _STEPC + 1  # rows per drone bank (66)
 
-
-def _partner(x: Array) -> Array:
-    """The opponent's value of a (8, TILE) register: drone m of arena a sits
-    4 sublanes away from drone 1-m (the wrapper packs [all drone-0s, all
-    drone-1s] row-major into the sublane axis), so a sublane roll by 4 is an
-    exact, self-inverse partner exchange."""
-    return jnp.roll(x, 4, axis=0)
+# registers carried through the kernel's aviary-step loop
+_CARRY = ("d", "hp", "ang", "pang", "hit", "dist", "pdist", "term", "trunc",
+          "rwd", "collf", "oobf")
+ROWS = 2 * DR    # drone m's row r lives at m * DR + r
 
 
 def _build_kernel(
@@ -98,9 +86,6 @@ def _build_kernel(
     ``damage_per_hit``, ``collision_radius``, ``sparse``."""
     B = pfw._bake(params, cfg)
 
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
     inner = int(fuse["inner_steps"])
     dome2 = float(fuse["dome"]) ** 2
     max_steps = float(fuse["max_steps"])
@@ -109,149 +94,170 @@ def _build_kernel(
     dph = float(fuse["damage_per_hit"])
     crad2 = (2.0 * float(fuse["collision_radius"])) ** 2
     sparse = bool(fuse["sparse"])
+    M = (0, 1)
 
-    def kernel(seed_ref, s_ref, o_ref):
-        if noisy:
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-        S = s_ref[:]  # (ROWS, 8, TILE)
+    def kernel(S, rng):
+        rng = rng if noisy else None
 
-        d = {
-            "pos": [S[pfw._POS + i] for i in range(3)],
-            "quat": [S[pfw._QUAT + i] for i in range(4)],
-            "lvel": [S[pfw._LVEL + i] for i in range(3)],
-            "avel": [S[pfw._AVEL + i] for i in range(3)],
-            "view": [S[pfw._VIEW + i] for i in range(12)],
-            "slv": [S[pfw._SLV + i] for i in range(15)],
-            "act": [S[pfw._ACT + i] for i in range(5)],
-            "thr": S[pfw._THR],
-            "sp": [S[pfw._SP + i] for i in range(6)],
-            "contact": S[pfw._CON],
-        }
-        hp = S[_HP]
-        ang = S[_ANG]
-        pang = S[_PANG]
-        hit = S[_HIT]
-        dist = S[_DIST]
-        pdist = S[_PDIST]
-        othd = S[_OTHD]
-        stepc = S[_STEPC]
-        zero = jnp.zeros_like(dist)
-        term = zero
-        trunc = zero
-        rwd = zero
-        collf = zero
-        oobf = zero
+        def bank(m):
+            o = m * DR
+            return {
+                "pos": [S[o + pfw._POS + i] for i in range(3)],
+                "quat": [S[o + pfw._QUAT + i] for i in range(4)],
+                "lvel": [S[o + pfw._LVEL + i] for i in range(3)],
+                "avel": [S[o + pfw._AVEL + i] for i in range(3)],
+                "view": [S[o + pfw._VIEW + i] for i in range(12)],
+                "slv": [S[o + pfw._SLV + i] for i in range(15)],
+                "act": [S[o + pfw._ACT + i] for i in range(5)],
+                "thr": S[o + pfw._THR],
+                "sp": [S[o + pfw._SP + i] for i in range(6)],
+                "contact": S[o + pfw._CON],
+            }
+
+        d = [bank(m) for m in M]
+        row = lambda r: [S[m * DR + r] for m in M]
+        hp, ang, pang, hit = row(_HP), row(_ANG), row(_PANG), row(_HIT)
+        dist, pdist, othd, stepc = row(_DIST), row(_PDIST), row(_OTHD), row(_STEPC)
+        zero = jnp.zeros_like(dist[0])
+        term = [zero, zero]
+        trunc = [zero, zero]
+        rwd = [zero, zero]
+        collf = [zero, zero]
+        oobf = [zero, zero]
         # step_count is pre-increment and constant across the inner loop
         # (ma_fixedwing_dogfight.py:332 uses st.step_count > max_steps)
-        trunc_hit = (stepc > max_steps).astype(jnp.float32)
+        trunc_hit = [(stepc[m] > max_steps).astype(jnp.float32) for m in M]
 
         # setpoints are written once per agent step, so the mode-0 assist
         # command is constant across the inner loop (aviary set_mode(0)
         # quirk: even 6-dim unassisted actions use this map — see
         # envs/ma_fixedwing_dogfight.py action_size docstring)
-        cmd = pfw._control_cmd(B, 0, d["sp"])
+        cmd = [pfw._control_cmd(B, 0, d[m]["sp"]) for m in M]
 
-        for _a in range(inner):
+        def aviary_step(a, C):
+            (d, hp, ang, pang, hit, dist, pdist, term, trunc, rwd, collf,
+             oobf) = (C[n] for n in _CARRY)
             # ---- engagement rewards FIRST, from the PREVIOUS aviary step's
             # memos (ma_fixedwing_dogfight_env.py:306-313 fires the reward
             # memo before the state memo). Per-drone symmetric: own angle
             # memos + the partner's hit memo.
-            if sparse:
-                r_step = zero
-            else:
-                in_range = (dist < lethal_d).astype(jnp.float32)
-                closing = jnp.maximum(pdist - dist, 0.0)
-                chasing = (jnp.abs(ang) < (np.pi / 2.0)).astype(jnp.float32)
-                r_step = (
-                    closing * (1.0 - in_range) * chasing
-                    + (pang - ang) * in_range * 10.0
-                    + 3.0 / (ang + 0.1) * in_range
-                )
-            r_step = r_step + 30.0 * hit - 20.0 * _partner(hit)
+            r_step = []
+            for m in M:
+                if sparse:
+                    r = zero
+                else:
+                    in_range = (dist[m] < lethal_d).astype(jnp.float32)
+                    closing = jnp.maximum(pdist[m] - dist[m], 0.0)
+                    chasing = (jnp.abs(ang[m]) < (np.pi / 2.0)).astype(
+                        jnp.float32
+                    )
+                    r = (
+                        closing * (1.0 - in_range) * chasing
+                        + (pang[m] - ang[m]) * in_range * 10.0
+                        + 3.0 / (ang[m] + 0.1) * in_range
+                    )
+                r_step.append(r + 30.0 * hit[m] - 20.0 * hit[1 - m])
 
-            # ---- physics: one aviary step, ONE bank covering all 2N drones
-            c = zero
-            for _it in range(B["ratio"]):
-                pfw._drone_physics_iter(B, noisy, d, cmd)
-                c = jnp.maximum(c, d["contact"])
+            # ---- physics: one aviary step for each drone
+            def physics_iter(k, P):
+                d, c = P
+                for m in M:
+                    r = None if rng is None else rng.child(
+                        (a * B["ratio"] + k) * 2 + m
+                    )
+                    pfw._drone_physics_iter(B, r, d[m], cmd[m])
+                    c[m] = jnp.maximum(c[m], d[m]["contact"])
+                return d, c
+
+            d, c = pmk.fori(B["ratio"], physics_iter, (d, [zero, zero]))
 
             # ---- _agent_states (ma_fixedwing_dogfight_env.py:164-207):
             # forward vector from the lagged euler read, own gun position,
-            # separation toward the partner (sign-symmetric: |sep| and
-            # own-forward dot are what the cone math consumes)
-            v = d["view"]
-            cp = jnp.cos(v[4])
-            fwd = [jnp.cos(v[5]) * cp, jnp.sin(v[5]) * cp, -jnp.sin(v[4])]
-            gun = [v[9 + k] - 0.35 * fwd[k] for k in range(3)]
-            sep = [_partner(gun[k]) - gun[k] for k in range(3)]
-            d2 = sep[0] * sep[0] + sep[1] * sep[1] + sep[2] * sep[2]
-            dist_new = jnp.sqrt(d2)
-            inv_d = 1.0 / jnp.maximum(dist_new, 1e-8)
-            dot = sep[0] * fwd[0] + sep[1] * fwd[1] + sep[2] * fwd[2]
-            ang_new = (np.pi / 2.0) - pmk.asin(
-                jnp.clip(dot * inv_d, -1.0, 1.0)
-            )
-            in_range_new = (dist_new < lethal_d).astype(jnp.float32)
-            hit_new = (
-                (ang_new < lethal_a).astype(jnp.float32)
-                * in_range_new
-                * (jnp.abs(ang_new) < (np.pi / 2.0)).astype(jnp.float32)
-            )
-            hp = hp - dph * _partner(hit_new)
-            pang, ang = ang, ang_new
-            pdist, dist = dist, dist_new
+            # separation toward the partner
+            gun, fwd = [], []
+            for m in M:
+                v = d[m]["view"]
+                cp = jnp.cos(v[4])
+                f = [jnp.cos(v[5]) * cp, jnp.sin(v[5]) * cp, -jnp.sin(v[4])]
+                fwd.append(f)
+                gun.append([v[9 + k] - 0.35 * f[k] for k in range(3)])
+            hit_new = []
+            for m in M:
+                sep = [gun[1 - m][k] - gun[m][k] for k in range(3)]
+                d2 = sep[0] * sep[0] + sep[1] * sep[1] + sep[2] * sep[2]
+                dist_new = jnp.sqrt(d2)
+                inv_d = 1.0 / jnp.maximum(dist_new, 1e-8)
+                dot = sep[0] * fwd[m][0] + sep[1] * fwd[m][1] + sep[2] * fwd[m][2]
+                ang_new = (np.pi / 2.0) - pmk.asin(dot * inv_d)
+                in_range_new = (dist_new < lethal_d).astype(jnp.float32)
+                hit_new.append(
+                    (ang_new < lethal_a).astype(jnp.float32)
+                    * in_range_new
+                    * (jnp.abs(ang_new) < (np.pi / 2.0)).astype(jnp.float32)
+                )
+                pang[m], ang[m] = ang[m], ang_new
+                pdist[m], dist[m] = dist[m], dist_new
+            for m in M:
+                hp[m] = hp[m] - dph * hit_new[1 - m]
             hit = hit_new
 
             # ---- collisions / bounds (ma_fixedwing_dogfight.py:320-331)
-            dx = d["pos"][0] - _partner(d["pos"][0])
-            dy = d["pos"][1] - _partner(d["pos"][1])
-            dz = d["pos"][2] - _partner(d["pos"][2])
+            p0, p1 = d[0]["pos"], d[1]["pos"]
+            dx, dy, dz = (p0[k] - p1[k] for k in range(3))
             mutual = (dx * dx + dy * dy + dz * dz < crad2).astype(jnp.float32)
-            coll = jnp.maximum(c, mutual)
-            lp2 = v[9] * v[9] + v[10] * v[10] + v[11] * v[11]
-            oob = (lp2 > dome2).astype(jnp.float32)
-            r_step = r_step - 3000.0 * oob - 3000.0 * coll
-            term = jnp.minimum(term + coll + oob + othd, 1.0)
-            trunc = jnp.minimum(trunc + trunc_hit, 1.0)
-            rwd = rwd + r_step
-            collf = jnp.minimum(collf + coll, 1.0)
-            oobf = jnp.minimum(oobf + oob, 1.0)
+            for m in M:
+                v = d[m]["view"]
+                coll = jnp.maximum(c[m], mutual)
+                lp2 = v[9] * v[9] + v[10] * v[10] + v[11] * v[11]
+                oob = (lp2 > dome2).astype(jnp.float32)
+                r_step[m] = r_step[m] - 3000.0 * oob - 3000.0 * coll
+                term[m] = jnp.minimum(term[m] + coll + oob + othd[m], 1.0)
+                trunc[m] = jnp.minimum(trunc[m] + trunc_hit[m], 1.0)
+                rwd[m] = rwd[m] + r_step[m]
+                collf[m] = jnp.minimum(collf[m] + coll, 1.0)
+                oobf[m] = jnp.minimum(oobf[m] + oob, 1.0)
+            L = locals()
+            return {n: L[n] for n in _CARRY}
+
+        L = locals()
+        C = pmk.fori(inner, aviary_step, {n: L[n] for n in _CARRY})
+        (d, hp, ang, pang, hit, dist, pdist, term, trunc, rwd, collf,
+         oobf) = (C[n] for n in _CARRY)
 
         # ---- pack back
         out = [None] * ROWS
-        for i in range(3):
-            out[pfw._POS + i] = d["pos"][i]
-            out[pfw._LVEL + i] = d["lvel"][i]
-            out[pfw._AVEL + i] = d["avel"][i]
-        for i in range(4):
-            out[pfw._QUAT + i] = d["quat"][i]
-        for i in range(12):
-            out[pfw._VIEW + i] = d["view"][i]
-        for i in range(15):
-            out[pfw._SLV + i] = d["slv"][i]
-        for i in range(5):
-            out[pfw._ACT + i] = d["act"][i]
-        out[pfw._THR] = d["thr"]
-        for i in range(6):
-            out[pfw._SP + i] = d["sp"][i]
-        out[pfw._CON] = d["contact"]
-        out[_HP] = hp
-        out[_ANG] = ang
-        out[_PANG] = pang
-        out[_HIT] = hit
-        out[_DIST] = dist
-        out[_PDIST] = pdist
-        out[_TERM] = term
-        out[_TRUNC] = trunc
-        out[_RWD] = rwd
-        out[_COLLF] = collf
-        out[_OOBF] = oobf
-        out[_OTHD] = othd
-        out[_STEPC] = stepc + 1.0
-        for i in range(ROWS):  # padding rows
-            if out[i] is None:
-                out[i] = zero
-        o_ref[:] = jnp.stack(out, axis=0)
+        for m in M:
+            o, dm = m * DR, d[m]
+            for i in range(3):
+                out[o + pfw._POS + i] = dm["pos"][i]
+                out[o + pfw._LVEL + i] = dm["lvel"][i]
+                out[o + pfw._AVEL + i] = dm["avel"][i]
+            for i in range(4):
+                out[o + pfw._QUAT + i] = dm["quat"][i]
+            for i in range(12):
+                out[o + pfw._VIEW + i] = dm["view"][i]
+            for i in range(15):
+                out[o + pfw._SLV + i] = dm["slv"][i]
+            for i in range(5):
+                out[o + pfw._ACT + i] = dm["act"][i]
+            out[o + pfw._THR] = dm["thr"]
+            for i in range(6):
+                out[o + pfw._SP + i] = dm["sp"][i]
+            out[o + pfw._CON] = dm["contact"]
+            out[o + _HP] = hp[m]
+            out[o + _ANG] = ang[m]
+            out[o + _PANG] = pang[m]
+            out[o + _HIT] = hit[m]
+            out[o + _DIST] = dist[m]
+            out[o + _PDIST] = pdist[m]
+            out[o + _TERM] = term[m]
+            out[o + _TRUNC] = trunc[m]
+            out[o + _RWD] = rwd[m]
+            out[o + _COLLF] = collf[m]
+            out[o + _OOBF] = oobf[m]
+            out[o + _OTHD] = othd[m]
+            out[o + _STEPC] = stepc[m] + 1.0
+        return out
 
     return kernel
 
@@ -270,10 +276,9 @@ def packed_dogfight_step(
     damage_per_hit: float,
     collision_radius: float,
     sparse: bool = False,
-    tile: int = 512,
 ) -> Array:
-    """One FULL dogfight agent step on the packed (ROWS, 8, 2N/8) drone state
-    (N arenas = 2N agents; drone 0s in sublanes 0-3, drone 1s in 4-7).
+    """One FULL dogfight agent step on the packed (ROWS, 8, N/8) arena state
+    (N arenas = 2N agents; drone m's bank in rows [m * DR, (m + 1) * DR)).
     ``params`` must be CONCRETE; wrap the caller in ``jax.jit``. See
     envs/packed_dogfight.py for the env wrapper."""
     kernel = _build_kernel(
@@ -285,4 +290,4 @@ def packed_dogfight_step(
             sparse=sparse,
         ),
     )
-    return pmk.grid_call(kernel, packed, seed, tile)
+    return pmk.grid_call(kernel, packed, seed)

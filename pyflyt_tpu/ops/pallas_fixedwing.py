@@ -1,13 +1,13 @@
-"""Pallas TPU kernel: fused Fixedwing agent step (modes -1/0, waypoints task).
+"""Pallas kernel (Triton route): fused Fixedwing agent step (modes -1/0,
+waypoints task).
 
 The quadx treatment (ops/pallas_quadx.py) applied to the fixed-wing vehicle:
-the whole drone state is packed as a folded ``(ROWS, 8, N/8)`` f32 array (env
-axis on lanes, folded 8-deep onto sublanes for full vreg tiles), one grid
-program owns a ``(ROWS, 8, TILE)`` block in VMEM, and the entire aviary-step
-chain — surface-assist control map -> actuation/throttle lag (+ noise) ->
+the whole drone state is packed as a folded ``(ROWS, 8, N/8)`` f32 array,
+one GPU thread owns one env (ops/pallas_math.grid_call), and the entire
+aviary-step chain — surface-assist control map -> actuation/throttle lag (+ noise) ->
 5-surface Khan aero wrench + puller-motor wrench -> lagged state read ->
 semi-implicit Euler with the full 3x3 composite inertia -> ground contact —
-runs register-resident per 128-env vector.
+runs in registers.
 
 Everything concrete at trace time is baked into the kernel as constants:
 
@@ -25,13 +25,12 @@ lifting_surfaces.py, themselves cited against /root/reference/PyFlyt/core/
 drones/fixedwing.py and core/abstractions/lifting_surfaces.py:315-484), with
 the same documented deviations as the quadx kernel:
 
-- motor noise draws from the Pallas per-core PRNG (Box-Muller) instead of the
-  threefry stream — same distribution, different sequence;
+- motor noise draws counter-hash normals (ops/pallas_math.HashNormal)
+  instead of the threefry stream — same distribution, different sequence;
 - ground contact is detection + positional projection + inelastic vertical
   stop instead of the impulse model in core/integrator.py::ground_contact —
   every fixedwing task terminates on contact, so the resolved post-contact
   state is only ever seen in the terminal observation;
-- ``atan2``/``asin`` are f32-grade minimax polynomials (|err| < 2e-5 rad);
 - the waypoint task update rotates target deltas with the pre-integration
   rotation matrix directly: the XLA path's euler -> quat -> rotmat round trip
   (envs/fixedwing_waypoints.py:100-102) is the identity on rotations, so this
@@ -51,7 +50,7 @@ from jax import Array
 from pyflyt_tpu.models import fixedwing
 from pyflyt_tpu.ops import pallas_math as pmk
 
-ROWS = 88  # 87 used, padded to a multiple of 8 sublanes
+ROWS = 88  # 87 used
 SUBLANES = 8
 
 # ---- drone rows
@@ -210,7 +209,7 @@ def surface_normal_forward(S, act_s, lv):
     cl3d, cd0 = S["cl3d"], S["cd0"]
     lifting = pmk.dot_const(lv, S["lu"])
     forward = pmk.dot_const(lv, S["du"])
-    alpha = pmk.atan2(-lifting, forward)
+    alpha = jnp.arctan2(-lifting, forward)
 
     if S["dlim_rad"] != 0.0:
         defl = act_s * S["dlim_rad"]
@@ -299,10 +298,10 @@ def _control_cmd(B, mode, sp):
     ]
 
 
-def _drone_physics_iter(B, noisy, d, cmd):
+def _drone_physics_iter(B, rng, d, cmd):
     """One 240 Hz physics iteration on register-resident fixedwing state.
 
-    ``d`` maps register names to lists of (sublane, lane) vregs: ``pos``[3],
+    ``d`` maps register names to lists of per-row values: ``pos``[3],
     ``quat``[4], ``lvel``[3], ``avel``[3], ``view``[12], ``slv``[15],
     ``act``[5], ``thr``, ``contact``; mutated in place. The chain is
     models/fixedwing.py physics_iter: actuator lag -> aero + motor wrench
@@ -322,8 +321,8 @@ def _drone_physics_iter(B, noisy, d, cmd):
     for si in range(5):
         act[si] = act[si] + (dt / B["surf_tau"][si]) * (cmd[si] - act[si])
     thr = thr + (dt / B["mot_tau"]) * (cmd[5] - thr)
-    if noisy:
-        thr = thr + pmk.make_normal(thr.shape) * thr * B["mot_noise"]
+    if rng is not None:
+        thr = thr + rng.normal() * thr * B["mot_noise"]
 
     # wrench from the LAGGED read state
     f = [jnp.zeros_like(thr) for _ in range(3)]
@@ -438,6 +437,13 @@ def _drone_physics_iter(B, noisy, d, cmd):
     return R
 
 
+# registers carried through the kernel's aviary-step and physics loops
+_DRONE = ("pos", "quat", "lvel", "avel", "view", "slv", "act", "thr",
+          "contact", "any_contact", "R")
+_ENV = ("rwd", "term", "trunc", "coll", "oobf", "cplt", "tgt", "rem",
+        "ndist", "odist", "tdlt")
+
+
 def _build_kernel(
     params: fixedwing.FixedwingParams,
     cfg: fixedwing.FixedwingConfig,
@@ -457,17 +463,12 @@ def _build_kernel(
     assert mode in (-1, 0), "fixedwing flight mode must be -1 or 0"
     B = _bake(params, cfg)
 
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
     if env_fuse is not None:
         NT = int(env_fuse["num_targets"])
         assert NT * 3 <= 12, "row layout carries at most 4 targets"
 
-    def kernel(seed_ref, s_ref, o_ref):
-        if noisy:
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-        S = s_ref[:]  # (ROWS, 8, TILE)
+    def kernel(S, rng):
+        rng = rng if noisy else None
 
         # ---- unpack mutable registers
         pos = [S[_POS + i] for i in range(3)]
@@ -481,7 +482,6 @@ def _build_kernel(
         sp = [S[_SP + i] for i in range(6)]
         contact = S[_CON]
         any_contact = jnp.zeros_like(contact)
-        R = None  # pre-integration rotation matrix, set every physics iter
 
         if env_fuse is not None:
             # reward is re-armed to -0.1 unconditionally at agent-step start
@@ -509,90 +509,104 @@ def _build_kernel(
         else:
             n_aviary = 1
 
-        for _a in range(n_aviary):
-          if env_fuse is not None:
-            done_before = jnp.minimum(term + trunc, 1.0)
-            snap = (
-                list(pos), list(quat), list(lvel), list(avel), list(view),
-                list(slv), list(act), thr, contact, list(tgt), rem, ndist,
-                odist, list(tdlt), rwd, term, trunc, coll, oobf, cplt,
-            )
-            any_contact = jnp.zeros_like(contact)
-
-          for it in range(B["ratio"]):
-            # ------------- control at iteration 0 (aviary.py:480-484)
-            if it == 0:
-                cmd = _control_cmd(B, mode, sp)
-
-            # ------------- physics iteration (models/fixedwing.py
-            # physics_iter), shared with the dogfight kernel
-            d = {
-                "pos": pos, "quat": quat, "lvel": lvel, "avel": avel,
-                "view": view, "slv": slv, "act": act, "thr": thr,
-                "contact": contact,
-            }
-            R = _drone_physics_iter(B, noisy, d, cmd)
-            pos, quat, lvel, avel = d["pos"], d["quat"], d["lvel"], d["avel"]
-            view, slv, act, thr = d["view"], d["slv"], d["act"], d["thr"]
-            contact = d["contact"]
-            any_contact = jnp.maximum(any_contact, contact)
-
-          if env_fuse is not None:
-            # ---- fused task update (fixedwing_waypoints.py _task_update) on
-            # the candidate state, then the done-freeze (fixedwing_base.py
-            # base_step inner)
-            lp = view[9:12]  # lagged base_pos
-            # update_distances on the pre-integration rotation of the LAST
-            # physics iter (== rotmat(euler_to_quat(view euler)) up to f32
-            # roundoff); shared register math in pallas_math.waypoint_track
-            (tgt_c, rem_c, ndist_new, odist_c, progress, tdlt_c, reached,
-             all_reached) = pmk.waypoint_track(R, lp, tgt, rem, ndist, NT, goal)
-
-            # base_term_trunc_reward (fixedwing_base.py:119-134)
-            oob_i = (
-                (lp[0] * lp[0] + lp[1] * lp[1] + lp[2] * lp[2]) > dome2
-            ).astype(jnp.float32)
-            fatal = jnp.maximum(any_contact, oob_i)
-            trunc_c = jnp.minimum(trunc + trunc_hit, 1.0)
-            rwd_c = jnp.where(fatal > 0.0, -100.0, rwd)
-            if not env_fuse["sparse"]:
-                rwd_c = (
-                    rwd_c
-                    + jnp.maximum(3.0 * progress, 0.0)
-                    + 1.0 / ndist_new
+        def aviary_step(a, C):
+            (pos, quat, lvel, avel, view, slv, act, thr, contact, any_contact,
+             R) = (C[n] for n in _DRONE)
+            (rwd, term, trunc, coll, oobf, cplt, tgt, rem, ndist, odist,
+             tdlt) = (C.get(n) for n in _ENV)
+            if env_fuse is not None:
+                done_before = jnp.minimum(term + trunc, 1.0)
+                snap = (
+                    list(pos), list(quat), list(lvel), list(avel), list(view),
+                    list(slv), list(act), thr, contact, list(tgt), rem, ndist,
+                    odist, list(tdlt), rwd, term, trunc, coll, oobf, cplt,
                 )
-            rwd_c = jnp.where(reached > 0.0, 100.0, rwd_c)
-            trunc_c = jnp.minimum(trunc_c + all_reached, 1.0)
-            cplt_c = jnp.minimum(cplt + all_reached, 1.0)
-            term_c = jnp.minimum(term + fatal, 1.0)
-            coll_c = jnp.minimum(coll + any_contact, 1.0)
-            oobf_c = jnp.minimum(oobf + oob_i, 1.0)
+                any_contact = jnp.zeros_like(contact)
 
-            keep = done_before
-            sel = lambda old_v, new_v: keep * old_v + (1.0 - keep) * new_v
-            (s_pos, s_quat, s_lvel, s_avel, s_view, s_slv, s_act, s_thr,
-             s_con, s_tgt, s_rem, s_ndist, s_odist, s_tdlt, s_rwd, s_term,
-             s_trunc, s_coll, s_oobf, s_cplt) = snap
-            pos = [sel(o, n_) for o, n_ in zip(s_pos, pos)]
-            quat = [sel(o, n_) for o, n_ in zip(s_quat, quat)]
-            lvel = [sel(o, n_) for o, n_ in zip(s_lvel, lvel)]
-            avel = [sel(o, n_) for o, n_ in zip(s_avel, avel)]
-            view = [sel(o, n_) for o, n_ in zip(s_view, view)]
-            slv = [sel(o, n_) for o, n_ in zip(s_slv, slv)]
-            act = [sel(o, n_) for o, n_ in zip(s_act, act)]
-            thr = sel(s_thr, thr)
-            contact = sel(s_con, contact)
-            tgt = [sel(o, n_) for o, n_ in zip(s_tgt, tgt_c)]
-            rem = sel(s_rem, rem_c)
-            ndist = sel(s_ndist, ndist_new)
-            odist = sel(s_odist, odist_c)
-            tdlt = [sel(o, n_) for o, n_ in zip(s_tdlt, tdlt_c)]
-            rwd = sel(s_rwd, rwd_c)
-            term = sel(s_term, term_c)
-            trunc = sel(s_trunc, trunc_c)
-            coll = sel(s_coll, coll_c)
-            oobf = sel(s_oobf, oobf_c)
-            cplt = sel(s_cplt, cplt_c)
+            # ------------- control once per aviary step (aviary.py:480-484)
+            cmd = _control_cmd(B, mode, sp)
+
+            def physics_iter(k, d):
+                # models/fixedwing.py physics_iter, shared with the dogfight
+                r = None if rng is None else rng.child(a * B["ratio"] + k)
+                d["R"] = _drone_physics_iter(B, r, d, cmd)
+                d["any_contact"] = jnp.maximum(d["any_contact"], d["contact"])
+                return d
+
+            L = locals()
+            d = pmk.fori(B["ratio"], physics_iter, {n: L[n] for n in _DRONE})
+            (pos, quat, lvel, avel, view, slv, act, thr, contact, any_contact,
+             R) = (d[n] for n in _DRONE)
+
+            if env_fuse is not None:
+              # ---- fused task update (fixedwing_waypoints.py _task_update) on
+              # the candidate state, then the done-freeze (fixedwing_base.py
+              # base_step inner)
+              lp = view[9:12]  # lagged base_pos
+              # update_distances on the pre-integration rotation of the LAST
+              # physics iter (== rotmat(euler_to_quat(view euler)) up to f32
+              # roundoff); shared register math in pallas_math.waypoint_track
+              (tgt_c, rem_c, ndist_new, odist_c, progress, tdlt_c, reached,
+               all_reached) = pmk.waypoint_track(R, lp, tgt, rem, ndist, NT, goal)
+
+              # base_term_trunc_reward (fixedwing_base.py:119-134)
+              oob_i = (
+                  (lp[0] * lp[0] + lp[1] * lp[1] + lp[2] * lp[2]) > dome2
+              ).astype(jnp.float32)
+              fatal = jnp.maximum(any_contact, oob_i)
+              trunc_c = jnp.minimum(trunc + trunc_hit, 1.0)
+              rwd_c = jnp.where(fatal > 0.0, -100.0, rwd)
+              if not env_fuse["sparse"]:
+                  rwd_c = (
+                      rwd_c
+                      + jnp.maximum(3.0 * progress, 0.0)
+                      + 1.0 / ndist_new
+                  )
+              rwd_c = jnp.where(reached > 0.0, 100.0, rwd_c)
+              trunc_c = jnp.minimum(trunc_c + all_reached, 1.0)
+              cplt_c = jnp.minimum(cplt + all_reached, 1.0)
+              term_c = jnp.minimum(term + fatal, 1.0)
+              coll_c = jnp.minimum(coll + any_contact, 1.0)
+              oobf_c = jnp.minimum(oobf + oob_i, 1.0)
+
+              keep = done_before
+              sel = lambda old_v, new_v: keep * old_v + (1.0 - keep) * new_v
+              (s_pos, s_quat, s_lvel, s_avel, s_view, s_slv, s_act, s_thr,
+               s_con, s_tgt, s_rem, s_ndist, s_odist, s_tdlt, s_rwd, s_term,
+               s_trunc, s_coll, s_oobf, s_cplt) = snap
+              pos = [sel(o, n_) for o, n_ in zip(s_pos, pos)]
+              quat = [sel(o, n_) for o, n_ in zip(s_quat, quat)]
+              lvel = [sel(o, n_) for o, n_ in zip(s_lvel, lvel)]
+              avel = [sel(o, n_) for o, n_ in zip(s_avel, avel)]
+              view = [sel(o, n_) for o, n_ in zip(s_view, view)]
+              slv = [sel(o, n_) for o, n_ in zip(s_slv, slv)]
+              act = [sel(o, n_) for o, n_ in zip(s_act, act)]
+              thr = sel(s_thr, thr)
+              contact = sel(s_con, contact)
+              tgt = [sel(o, n_) for o, n_ in zip(s_tgt, tgt_c)]
+              rem = sel(s_rem, rem_c)
+              ndist = sel(s_ndist, ndist_new)
+              odist = sel(s_odist, odist_c)
+              tdlt = [sel(o, n_) for o, n_ in zip(s_tdlt, tdlt_c)]
+              rwd = sel(s_rwd, rwd_c)
+              term = sel(s_term, term_c)
+              trunc = sel(s_trunc, trunc_c)
+              coll = sel(s_coll, coll_c)
+              oobf = sel(s_oobf, oobf_c)
+              cplt = sel(s_cplt, cplt_c)
+
+
+            L = locals()
+            return {n: L[n] for n in carried}
+
+        R = (jnp.zeros_like(contact),) * 9
+        carried = list(_DRONE) + (list(_ENV) if env_fuse is not None else [])
+        L = locals()
+        C = pmk.fori(n_aviary, aviary_step, {n: L[n] for n in carried})
+        (pos, quat, lvel, avel, view, slv, act, thr, contact, any_contact,
+         R) = (C[n] for n in _DRONE)
+        (rwd, term, trunc, coll, oobf, cplt, tgt, rem, ndist, odist,
+         tdlt) = (C.get(n) for n in _ENV)
 
         # ---- pack back
         out = [None] * ROWS
@@ -635,13 +649,9 @@ def _build_kernel(
             out[_RWD] = any_contact  # spare row carries the any-contact flag
             for i in range(_RWD + 1, ROWS):
                 out[i] = zero
-        o_ref[:] = jnp.stack(out, axis=0)
+        return out
 
     return kernel
-
-
-def _grid_call(kernel, packed: Array, seed: Array, tile: int) -> Array:
-    return pmk.grid_call(kernel, packed, seed, tile)
 
 
 def packed_step(
@@ -651,13 +661,12 @@ def packed_step(
     cfg: fixedwing.FixedwingConfig,
     mode: int = 0,
     noisy: bool = True,
-    tile: int = 256,
 ) -> Array:
     """One aviary step on the packed (ROWS, 8, N/8) state. Row ``_RWD`` of the
     output carries the any-contact flag. ``params`` must be CONCRETE (baked at
     trace time); wrap the caller in ``jax.jit``."""
     kernel = _build_kernel(params, cfg, mode, noisy)
-    return _grid_call(kernel, packed, seed, tile)
+    return pmk.grid_call(kernel, packed, seed)
 
 
 def packed_waypoints_step(
@@ -673,7 +682,6 @@ def packed_waypoints_step(
     goal_dist: float,
     num_targets: int = 4,
     sparse: bool = False,
-    tile: int = 256,
 ) -> Array:
     """One FULL waypoints-env agent step on the packed state: ``inner_steps``
     aviary steps + waypoint tracking + reward shaping + termination/truncation
@@ -686,7 +694,7 @@ def packed_waypoints_step(
             sparse=sparse, num_targets=num_targets, goal_dist=goal_dist,
         ),
     )
-    return _grid_call(kernel, packed, seed, tile)
+    return pmk.grid_call(kernel, packed, seed)
 
 
 def step(

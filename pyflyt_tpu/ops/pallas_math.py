@@ -1,80 +1,31 @@
-"""Shared scalar-math helpers for the Mosaic/Pallas TPU kernels.
+"""Shared helpers for the fused vehicle kernels (Pallas, Triton route).
 
-Mosaic has no atan2/arcsin lowering, so the kernels use f32-grade minimax
-polynomials (|err| < 2e-5 rad — these only feed euler observations and the
-aero angle-of-attack, both far above that noise floor). The quaternion
-helpers mirror pyflyt_tpu/core/math.py on unpacked scalar "register" values
-(each a (8, TILE) tile) instead of stacked (..., 4) arrays.
+Every vehicle kernel launches through ``grid_call``: one program owns a
+``(rows, 8, tile)`` block of the folded ``(rows, 8, N/8)`` state, which is one
+env per thread at the default tile. Rows are loaded and stored one at a time
+(``(8, tile)`` each), because the Triton lowering only takes values whose size
+is a power of two. Noise comes from a counter-based hash of (seed, global env
+index, draw index), so noisy kernels run the same in interpret mode.
 
-Everything here is plain jnp and traces identically under
-``pallas_call(interpret=True)`` on CPU and real Mosaic lowering on TPU.
+The quaternion helpers mirror pyflyt_tpu/core/math.py on unpacked per-row
+values instead of stacked (..., 4) arrays.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-# process-wide interpret-mode override for every kernel launched through
-# grid_call (the single pallas_call site in the package). Scoped via
-# force_interpret() so off-TPU callers (the driver's CPU dryrun) don't have
-# to monkeypatch jax.experimental.pallas.pallas_call globally.
-_FORCE_INTERPRET = False
+from pyflyt_tpu import device
 
-
-@contextlib.contextmanager
-def force_interpret():
-    """Runs every grid_call-launched kernel in Pallas interpret mode."""
-    global _FORCE_INTERPRET
-    prev = _FORCE_INTERPRET
-    _FORCE_INTERPRET = True
-    try:
-        yield
-    finally:
-        _FORCE_INTERPRET = prev
-
-
-def atan_unit(t):
-    """Minimax atan on |t| <= 1."""
-    t2 = t * t
-    return t * (
-        0.99997726
-        + t2
-        * (
-            -0.33262347
-            + t2
-            * (
-                0.19354346
-                + t2 * (-0.11643287 + t2 * (0.05265332 + t2 * -0.01172120))
-            )
-        )
-    )
-
-
-def atan(t):
-    at = jnp.abs(t)
-    inv = at > 1.0
-    z = jnp.where(inv, 1.0 / jnp.maximum(at, 1e-30), at)
-    r = atan_unit(z)
-    r = jnp.where(inv, (np.pi / 2) - r, r)
-    return jnp.where(t < 0.0, -r, r)
-
-
-def atan2(yv, xv):
-    safe_x = jnp.where(
-        jnp.abs(xv) < 1e-30, jnp.where(xv >= 0.0, 1e-30, -1e-30), xv
-    )
-    base = atan(yv / safe_x)
-    add = jnp.where(yv >= 0.0, np.pi, -np.pi)
-    return jnp.where(xv < 0.0, base + add, base)
+SUBLANES = 8  # the env axis is folded (N,) -> (8, N/8)
+TILE = 16  # lanes per program: 8 x 16 = 128 envs, one per thread
+NUM_WARPS = 4
 
 
 def asin(s):
-    s = jnp.clip(s, -1.0, 1.0)
-    return atan2(s, jnp.sqrt(jnp.maximum(1.0 - s * s, 1e-12)))
+    return jnp.arcsin(jnp.clip(s, -1.0, 1.0))
 
 
 def quat_rotmat(quat):
@@ -92,9 +43,9 @@ def quat_to_euler(quat):
     """[x, y, z, w] -> (roll, pitch, yaw), PyBullet extraction
     (core/math.py::quat_to_euler)."""
     x, y, z, w = quat
-    roll = atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    roll = jnp.arctan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
     pitch = asin(2 * (w * y - z * x))
-    yaw = atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    yaw = jnp.arctan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
     return roll, pitch, yaw
 
 
@@ -118,18 +69,49 @@ def quat_integrate(quat, avel, dt):
     return [nx * norm, ny * norm, nz * norm, nw * norm]
 
 
-def make_normal(shape):
-    """Standard-normal draw via Box-Muller from the per-core Pallas PRNG
-    (two 31-bit draws; Mosaic lacks a uint32->f32 cast). Call
-    ``pltpu.prng_seed`` first."""
-    from jax.experimental.pallas import tpu as pltpu
+def _mix32(h):
+    """lowbias32 integer finaliser (uint32 -> uint32, a bijection)."""
+    h = h ^ (h >> 16)
+    h = h * jnp.uint32(0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = h * jnp.uint32(0x846CA68B)
+    return h ^ (h >> 16)
 
-    b1 = pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.int32)
-    b2 = pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.int32)
-    u1 = (b1 & 0x7FFFFFFF).astype(jnp.float32) / 2147483648.0
-    u2 = (b2 & 0x7FFFFFFF).astype(jnp.float32) / 2147483648.0
-    u1 = jnp.clip(u1, 1e-7, 1.0)
-    return jnp.sqrt(-2.0 * jnp.log(u1)) * jnp.cos(2.0 * jnp.pi * u2)
+
+def hash_uniform(seed, env, draw: int):
+    """Uniform (0, 1) f32 from (seed, env index, draw index); ``env`` is a
+    uint32 array, ``seed`` a uint32 scalar, ``draw`` a trace-time int."""
+    key = _mix32(seed + jnp.uint32((0x9E3779B9 * (draw + 1)) & 0xFFFFFFFF))
+    h = _mix32(_mix32(env ^ key) + key)
+    top = (h >> 8).astype(jnp.int32).astype(jnp.float32)  # 24 bits
+    return (top + 0.5) * (1.0 / 16777216.0)
+
+
+class HashNormal:
+    """Standard normals for one kernel program, one per env per draw.
+
+    Draw ``k`` of env ``e`` is a pure function of (seed, e, k): Box-Muller on
+    two hashed uniforms. Each call to ``normal()`` is a new draw index."""
+
+    def __init__(self, seed, env):
+        self.seed = seed
+        self.env = env
+        self.draws = 0
+
+    def child(self, i):
+        """An independent stream for loop iteration ``i`` (traced or int):
+        a loop body is traced once, so its draws are indexed by the loop
+        counter through the seed."""
+        step = jnp.asarray(i).astype(jnp.uint32) + jnp.uint32(1)
+        seed = _mix32(self.seed ^ _mix32(step * jnp.uint32(0x85EBCA77)))
+        return HashNormal(seed, self.env)
+
+    def normal(self):
+        k = self.draws
+        self.draws += 1
+        u1 = hash_uniform(self.seed, self.env, 2 * k)
+        u2 = hash_uniform(self.seed, self.env, 2 * k + 1)
+        return jnp.sqrt(-2.0 * jnp.log(u1)) * jnp.cos((2.0 * np.pi) * u2)
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +120,7 @@ def make_normal(shape):
 # Kernel parameters (unit vectors, lever arms) are concrete at bake time and
 # usually sparse (axis-aligned units, in-plane offsets). These helpers expand
 # dot/cross/axpy against a concrete numpy 3-vector, skipping exact-zero terms
-# so Mosaic never sees multiply-by-zero chains.
+# so the kernels carry no multiply-by-zero chains.
 
 
 def dot_const(v, c):
@@ -198,42 +180,69 @@ def matvec_t_const(M, v):
     return [dot_const(v, M[:, i]) for i in range(3)]
 
 
-def grid_call(kernel, packed, seed, tile: int):
-    """Shared pallas_call launcher for the folded (rows, 8, N/8) state
-    layout every vehicle kernel uses: scalar-prefetched seed, 1-D grid over
-    lane tiles, identity block mapping. One definition so a grid/tiling
-    change lands everywhere at once (the row count comes from the operand)."""
-    import jax
-    import jax.numpy as jnp
+def fori(n: int, body, state):
+    """``state = body(i, state)`` for ``i`` in ``range(n)`` as ONE loop in the
+    kernel: the body is traced and compiled once, not unrolled ``n`` times
+    (the compile time of the Triton route grows steeply with kernel length).
+    ``state`` is any pytree of ``(8, tile)`` values."""
+    if n == 1:
+        return body(0, state)
+    return jax.lax.fori_loop(0, n, body, state)
+
+
+def _pow2_divisor(lanes: int, tile: int) -> int:
+    """Largest power of two <= tile that divides lanes."""
+    t = 1
+    while t * 2 <= tile and lanes % (t * 2) == 0:
+        t *= 2
+    return t
+
+
+def grid_call(kernel, packed, seed, tile: int = TILE):
+    """Launches ``kernel`` over the folded ``(rows, 8, N/8)`` state.
+
+    ``kernel(S, rng)`` reads input row ``r`` as ``S[r]`` (an ``(8, tile)``
+    value), draws noise with ``rng.normal()``, and returns the list of output
+    rows (``None`` rows are written as zeros). One program per ``tile`` lanes;
+    the seed travels as a ``(1,)`` int32 operand."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as pltriton
 
     rows, sublanes, lanes = packed.shape
-    tile = min(tile, lanes)
-    if lanes % tile:
-        # non-divisible env counts (e.g. 12288 envs -> lanes=1536 vs
-        # tile=1024) degrade to the largest divisor instead of dying; the
-        # grid just gets more, smaller launches. Lanes is always a multiple
-        # of 128 upstream (packed envs pad to the vreg lane width).
-        tile = max(d for d in range(1, tile + 1) if lanes % d == 0)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(lanes // tile,),
-        in_specs=[
-            pl.BlockSpec((rows, sublanes, tile), lambda i, s: (0, 0, i)),
-        ],
-        out_specs=pl.BlockSpec((rows, sublanes, tile), lambda i, s: (0, 0, i)),
-    )
-    # interpret mode when forced (tests, dryrun) or whenever the backend is
-    # CPU — Mosaic only lowers on TPU, and auto-detecting makes standalone
-    # CPU scripts (eval of a packed env, examples) just work
-    interpret = _FORCE_INTERPRET or jax.default_backend() == "cpu"
+    tile = _pow2_divisor(lanes, tile)
+    grid = (lanes // tile,)
+
+    def body(seed_ref, s_ref, o_ref):
+        cache = {}
+
+        class Rows:
+            def __getitem__(self, r):
+                if r not in cache:
+                    cache[r] = s_ref[r]
+                return cache[r]
+
+        pid = pl.program_id(0)
+        sub = jax.lax.broadcasted_iota(jnp.int32, (sublanes, tile), 0)
+        lane = jax.lax.broadcasted_iota(jnp.int32, (sublanes, tile), 1)
+        env = (sub * lanes + pid * tile + lane).astype(jnp.uint32)
+        rng = HashNormal(seed_ref[0].astype(jnp.uint32), env)
+        out = kernel(Rows(), rng)
+        assert len(out) == rows, (len(out), rows)
+        zero = jnp.zeros((sublanes, tile), packed.dtype)
+        for r, v in enumerate(out):
+            o_ref[r] = zero if v is None else v
+
+    block = pl.BlockSpec((rows, sublanes, tile), lambda i: (0, 0, i))
     return pl.pallas_call(
-        kernel,
+        body,
         out_shape=jax.ShapeDtypeStruct(packed.shape, packed.dtype),
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(jnp.atleast_1d(seed).astype(jnp.int32), packed)
+        grid=grid,
+        in_specs=[pl.BlockSpec((1,), lambda i: (0,)), block],
+        out_specs=block,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+        interpret=device.pallas_interpret(),
+    )(jnp.reshape(seed, (1,)).astype(jnp.int32), packed)
 
 
 def waypoint_track(R, lp, tgt, rem, ndist, NT, goal):
@@ -248,8 +257,6 @@ def waypoint_track(R, lp, tgt, rem, ndist, NT, goal):
     reached, all_reached)`` — the caller applies its env's reward shaping
     (the proximity coefficient differs per env) and bookkeeping.
     """
-    import jax.numpy as jnp
-
     r00, r01, r02, r10, r11, r12, r20, r21, r22 = R
     # update_distances: world->body deltas for every (rolled) target
     deltas = []

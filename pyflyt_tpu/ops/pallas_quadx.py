@@ -1,42 +1,28 @@
-"""Pallas TPU kernel: fused QuadX agent step (modes 0 / 7 / 8).
+"""Pallas kernel (Triton route): fused QuadX agent step (modes 0/7/8/9).
 
-The pure-XLA step stores state as ``(N, 3)``/``(N, 4)`` arrays whose minor
-dims land on the TPU's 128-wide lanes — ~2-3% lane utilization per op, and
-every elementwise op in the 6-physics-iteration chain round-trips HBM. This
-kernel transposes the world: the whole drone state is packed as a
-``(ROWS, N)`` matrix (env axis on lanes), one grid program owns a
-``(ROWS, TILE)`` block in VMEM, and the entire aviary-step chain — PID
+The XLA step stores state as ``(N, 3)``/``(N, 4)`` arrays and runs the
+6-physics-iteration chain as many small fused kernels, each a round trip
+through device memory. This kernel keeps the whole drone state as a folded
+``(ROWS, 8, N/8)`` f32 array (env axis last), gives each GPU thread one env
+(ops/pallas_math.grid_call), and runs the entire aviary-step chain — PID
 cascade → motor mix → saturation → throttle lag (+ noise) → wrench → lagged
-state read → semi-implicit Euler → ground contact — runs register-resident
-per 128-env vector.
+state read → semi-implicit Euler → ground contact — in registers.
 
 Math is identical to the reference path (models/quadx.py), with two
 documented deviations:
-- motor noise draws from the Pallas per-core PRNG (Box-Muller) instead of
-  the threefry stream — same distribution, different sequence;
+- motor noise draws counter-hash normals (ops/pallas_math.HashNormal)
+  instead of the threefry stream — same distribution, different sequence;
 - ground contact is detection + positional projection + inelastic vertical
   stop (the envs that use this path terminate on contact, so the reference's
   full impulse resolution is never observed).
 
 Validated against ``quadx.step`` in tests/test_pallas_quadx.py (noise off ⇒
-bitwise-close agreement).
-
-Measured on one v5e chip (8192 envs, 256-step scans, noise on):
-
-- flat (ROWS, N) layout, one aviary step per call: 80.2M aviary-steps/s —
-  launch/HBM-bound (the 1-sublane row vectors leave the VPU ~1/8 utilized,
-  but per-call overhead dominated anyway). End-to-end through
-  ``QuadXHoverEnv(use_pallas=True)`` it matched the XLA pipeline (27.6M vs
-  27.0M env-steps/s).
-- folded (ROWS, 8, N/8) layout + the WHOLE env agent step fused in one call
-  (``packed_hover_step``: 3 aviary steps + reward/termination/freeze): the
-  hover env reaches **121.5M env-steps/s** (= 364M aviary-steps/s inside
-  the kernel) vs 27.3M for the XLA pipeline — 4.5× end-to-end, 12.1× the
-  recorded 10M north-star target. This is the default ``bench.py`` path;
-  envelope: modes 0/7/8/9, ENU or NED (mode 7 ENU-only), optional baked
-  gaussian/simple wind fields, detection-grade contact (mode 7 carries the
-  full position-PID cascade in 24 extension rows — see ROWS_MODE7; the
-  waypoints task adds WP_ROWS more — see rows_for_waypoints).
+agreement to float32 rounding). ``packed_hover_step`` fuses the WHOLE hover
+env agent step (3 aviary steps + reward/termination/freeze) into one call;
+envelope: modes 0/7/8/9, ENU or NED (mode 7 ENU-only), optional baked
+gaussian/simple wind fields, detection-grade contact (mode 7 carries the
+full position-PID cascade in 24 extension rows — see ROWS_MODE7; the
+waypoints task adds WP_ROWS more — see rows_for_waypoints).
 """
 
 from __future__ import annotations
@@ -49,7 +35,7 @@ from jax import Array
 from pyflyt_tpu.models import quadx
 from pyflyt_tpu.ops import pallas_math as pmk
 
-ROWS = 56  # 50 used (56 with env fusion), padded to a multiple of 8 sublanes
+ROWS = 56  # 50 used (56 with env fusion)
 
 # row layout
 _POS = 0       # 3: world ENU position
@@ -66,10 +52,10 @@ _PINT = 43     # 3: ang_vel PID integral
 _PPRV = 46     # 3: ang_vel PID prev error
 _CON = 49      # 1: contact flag (0/1)
 
-# ---- mode-7 extension rows (packed ONLY when mode == 7, so the bench-path
-# modes 0/8 keep their 56-row HBM footprint): the four extra PID banks of
+# ---- mode-7 extension rows (packed ONLY when mode == 7, so modes 0/8/9
+# keep their 56-row footprint): the four extra PID banks of
 # the position-control cascade (quadx.py:465-545)
-ROWS_MODE7 = 80  # 74 used, padded to a multiple of 8 sublanes
+ROWS_MODE7 = 80  # 74 used
 _LP_INT = 56   # 2: lin_pos PID integral
 _LP_PRV = 58   # 2: lin_pos PID prev error
 _LV_INT = 60   # 2: lin_vel PID integral
@@ -103,9 +89,7 @@ def rows_for_waypoints(mode: int) -> int:
     return ((n + SUBLANES - 1) // SUBLANES) * SUBLANES
 
 
-SUBLANES = 8  # env axis is folded (N,) -> (SUBLANES, N/SUBLANES): a packed
-# row is a full-utilization (8, lanes) vreg tile instead of a 1-sublane
-# (1, N) strip — ~8x the VPU issue width for the kernel's elementwise chains
+SUBLANES = pmk.SUBLANES  # env axis is folded (N,) -> (SUBLANES, N/SUBLANES)
 
 
 def pack_state(state: quadx.QuadXState, mode: int = 0) -> Array:
@@ -221,6 +205,15 @@ _STEP = 55   # agent step count (exact as f32 below 2^24)
 _WBASE = 51  # 3: per-env wind base, world frame of cfg.orn_conv
 
 
+# registers carried through the kernel's aviary-step and physics loops
+_DRONE = ("pos", "quat", "lvel", "avel", "view", "avb", "drg", "thr", "pwm",
+          "pint", "pprv", "contact", "any_contact", "Rlast")
+_ENV = ("rwd", "term", "trunc", "coll", "oobf")
+_WP = ("tgt", "rem", "ndist", "odist", "tdlt", "cplt")
+_PHYS = ("thr", "pos", "quat", "lvel", "avel", "view", "avb", "drg",
+         "contact", "any_contact", "Rlast")
+
+
 def _build_kernel(params: quadx.QuadXParams, cfg: quadx.QuadXConfig, mode: int,
                   noisy: bool, env_fuse: dict | None = None,
                   wind: dict | None = None):
@@ -240,7 +233,7 @@ def _build_kernel(params: quadx.QuadXParams, cfg: quadx.QuadXConfig, mode: int,
     (core/wind.py::GaussianWind — base + per-axis clipped unit normal,
     resampled every physics iteration) or
     ``{"kind": "simple", "strength": float}`` (SimpleWind thermal + unit
-    noise). Stochastic wind uses the kernel-internal PRNG: same
+    noise). Stochastic wind uses the kernel's counter-hash normals: same
     distribution as the XLA wind models, different stream (the established
     kernel deviation class); gaussian with ``max_gust=0`` is deterministic
     and exactly matches the XLA path.
@@ -296,23 +289,11 @@ def _build_kernel(params: quadx.QuadXParams, cfg: quadx.QuadXConfig, mode: int,
     ratio = cfg.physics_control_ratio
     g = 9.81
 
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    # polynomial atan2/asin + Box-Muller shared with the other vehicle
-    # kernels (ops/pallas_math.py)
-    _atan2 = pmk.atan2
-    _asin = pmk.asin
-
     wind_stochastic = wind is not None and (
         wind["kind"] == "simple" or float(wind.get("max_gust", 0.0)) > 0.0
     )
 
-    def kernel(seed_ref, s_ref, o_ref):
-        if noisy or wind_stochastic:
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-        S = s_ref[:]  # (ROWS, 8, TILE) — each row is a full (8, TILE) tile
-        normal = pmk.make_normal
+    def kernel(S, rng):
 
         # ---- unpack mutable registers
         pos = [S[_POS + i] for i in range(3)]
@@ -415,341 +396,375 @@ def _build_kernel(params: quadx.QuadXParams, cfg: quadx.QuadXConfig, mode: int,
                 for j in range(len(prvs)):
                     prvs[j] = flat[i]; i += 1
 
-        for _a in range(n_aviary):
-          if env_fuse is not None:
-            done_before = jnp.minimum(jnp.maximum(term, trunc), 1.0)
-            snap = (
-                list(pos), list(quat), list(lvel), list(avel), list(view),
-                list(avb), list(drg), list(thr), list(pwm), list(pint),
-                list(pprv), contact, rwd, term, trunc, coll, oobf,
-            )
-            snap_ext = ext_flat() if mode == 7 else None
-            if wpf is not None:
-                snap_wp = (
-                    list(tgt), rem, ndist, odist, list(tdlt), cplt,
-                )
-            any_contact = jnp.zeros_like(contact)
-
-          for it in range(ratio):
-            # ---------------- control at iteration 0 (aviary.py:480-484)
-            if it == 0:
-                if mode == 8:
-                    # direct PWM (quadx.py:452-454); saturation still applies
-                    raw = [sp[0], sp[1], sp[2], sp[3]]
-                elif mode == 9:
-                    # raw motor mix (fork mode): motor_map @ setpoint, no
-                    # PID, no z clip (models/quadx.py:377-378)
-                    raw = [
-                        mmap[m, 0] * sp[0] + mmap[m, 1] * sp[1]
-                        + mmap[m, 2] * sp[2] + mmap[m, 3] * sp[3]
-                        for m in range(4)
-                    ]
-                else:  # modes 0/7: PID cascade + z clip (quadx.py:465-561)
-                    if mode == 7:
-                        # position cascade: lin_pos -> yaw frame -> lin_vel
-                        # -> axis swap -> ang_pos, z_pos -> z_vel
-                        xy = pid_bank(
-                            "lp", "lin_pos",
-                            [view[9], view[10]], [sp[0], sp[1]],
-                        )
-                        cy, sy = jnp.cos(view[5]), jnp.sin(view[5])
-                        xy = [cy * xy[0] + sy * xy[1],
-                              -sy * xy[0] + cy * xy[1]]
-                        xy = pid_bank("lv", "lin_vel", [view[6], view[7]], xy)
-                        xy = [-xy[1], xy[0]]  # ENU swap (quadx.py:472-515)
-                        a_sp = pid_bank(
-                            "ap", "ang_pos",
-                            [view[3], view[4], view[5]],
-                            [xy[0], xy[1], sp[2]],
-                        )
-                        z1 = pid_bank("zp", "z_pos", [view[11]], [sp[3]])
-                        z1 = pid_bank("zv", "z_vel", [view[8]], z1)
-                        z_cmd = jnp.clip(z1[0], 0.0, 1.0)
-                    else:  # mode 0: setpoint IS the ang_vel command
-                        a_sp = [sp[0], sp[1], sp[2]]
-                        if ned:
-                            # clip(z, -1, 0) then negate (quadx.py:425+441)
-                            z_cmd = jnp.clip(
-                                -jnp.clip(sp[3], -1.0, 0.0), 0.0, 1.0
-                            )
-                        else:
-                            z_cmd = jnp.clip(sp[3], 0.0, 1.0)
-                    cmd = []
-                    for i in range(3):
-                        err = a_sp[i] - view[0 + i]  # view rows 0-2 = ang_vel
-                        pint[i] = jnp.clip(
-                            pint[i] + ki[i] * err * period, -lim[i], lim[i]
-                        )
-                        deriv = kd[i] * (err - pprv[i]) / period
-                        pprv[i] = err
-                        cmd.append(
-                            jnp.clip(kp[i] * err + pint[i] + deriv, -lim[i], lim[i])
-                        )
-                    cmd.append(z_cmd)
-                    raw = [
-                        mmap[m, 0] * cmd[0] + mmap[m, 1] * cmd[1]
-                        + mmap[m, 2] * cmd[2] + mmap[m, 3] * cmd[3]
-                        for m in range(4)
-                    ]
-                # saturation rescale (quadx.py:553-561)
-                high = jnp.maximum(jnp.maximum(raw[0], raw[1]),
-                                   jnp.maximum(raw[2], raw[3]))
-                low = jnp.minimum(jnp.minimum(raw[0], raw[1]),
-                                  jnp.minimum(raw[2], raw[3]))
-                pmax = jnp.minimum(high, max_pwm)
-                pmin = jnp.maximum(low, min_pwm)
-                dh = jnp.where(high != low, pmax - low, 1.0)
-                dl = jnp.where(high != low, high - pmin, 1.0)
-                pwm = [
-                    jnp.clip(
-                        jnp.where(
-                            high != low,
-                            r + (pmin - low) / dh * (pmax - r)
-                            - (high - pmax) / dl * (r - pmin),
-                            r,
-                        ),
-                        min_pwm,
-                        max_pwm,
-                    )
-                    for r in raw
-                ]
-
-            # ---------------- physics iteration (models/quadx.py physics_iter)
-            # motor throttle lag + noise
-            if noisy:
-                # one (8, TILE) 2-D draw per motor (TPU PRNG needs >=2D)
-                nrm = [normal(contact.shape) for _ in range(4)]
-            for m in range(4):
-                thr[m] = thr[m] + (dt / tau[m]) * (pwm[m] - thr[m])
-                if noisy:
-                    thr[m] = thr[m] + nrm[m] * thr[m] * noise_ratio[m]
-
-            # wrench from the LAGGED read state
-            fz = jnp.zeros_like(thr[0])
-            tx = jnp.zeros_like(thr[0])
-            ty = jnp.zeros_like(thr[0])
-            tz = jnp.zeros_like(thr[0])
-            for m in range(4):
-                rpm = thr[m] * max_rpm[m]
-                rc = rpm * rpm * jnp.sign(rpm)
-                f = rc * ct[m]
-                fz = fz + f
-                tx = tx + mpos[m][1] * f  # r × F for F along +z
-                ty = ty - mpos[m][0] * f
-                tz = tz + rc * cq[m]
-            fdx = -jnp.sign(drg[0]) * drag_k[0] * drg[0] * drg[0]
-            fdy = -jnp.sign(drg[1]) * drag_k[1] * drg[1] * drg[1]
-            fdz = -jnp.sign(drg[2]) * drag_k[2] * drg[2] * drg[2]
-            nc = 1.0 - contact
-            tx = tx - nc * jnp.sign(avb[0]) * drag_pqr * avb[0] * avb[0]
-            ty = ty - nc * jnp.sign(avb[1]) * drag_pqr * avb[1] * avb[1]
-            tz = tz - nc * jnp.sign(avb[2]) * drag_pqr * avb[2] * avb[2]
-            fx, fy, fz = fdx, fdy, fz + fdz
-
-            # rotation matrix from quat (body->world)
-            x, y, z, w = quat
-            r00 = 1 - 2 * (y * y + z * z); r01 = 2 * (x * y - w * z); r02 = 2 * (x * z + w * y)
-            r10 = 2 * (x * y + w * z); r11 = 1 - 2 * (x * x + z * z); r12 = 2 * (y * z - w * x)
-            r20 = 2 * (x * z - w * y); r21 = 2 * (y * z + w * x); r22 = 1 - 2 * (x * x + y * y)
-
-            # ---- NEW read snapshot (pre-integration state; quadx update_state)
-            lvb = [r00 * lvel[0] + r10 * lvel[1] + r20 * lvel[2],
-                   r01 * lvel[0] + r11 * lvel[1] + r21 * lvel[2],
-                   r02 * lvel[0] + r12 * lvel[1] + r22 * lvel[2]]
-            avb_new = [r00 * avel[0] + r10 * avel[1] + r20 * avel[2],
-                       r01 * avel[0] + r11 * avel[1] + r21 * avel[2],
-                       r02 * avel[0] + r12 * avel[1] + r22 * avel[2]]
-            # euler from quat (pm.quat_to_euler)
-            roll = _atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
-            pitch = _asin(2 * (w * y - z * x))
-            yaw = _atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
-            if ned:
-                # NED/FRD read convention (models/quadx.py update_state:
-                # flu_vec_to_frd on body rates/vels, enu_euler_to_ned,
-                # enu_pos_to_ned); the body state itself stays ENU
-                new_view = [
-                    avb_new[0], -avb_new[1], -avb_new[2],
-                    roll, -pitch, (np.pi / 2.0) - yaw,
-                    lvb[0], -lvb[1], -lvb[2],
-                    pos[1], pos[0], -pos[2],
-                ]
-            else:
-                new_view = [
-                    avb_new[0], avb_new[1], avb_new[2], roll, pitch, yaw,
-                    lvb[0], lvb[1], lvb[2], pos[0], pos[1], pos[2],
-                ]
-            if wind is None:
-                new_drg = lvb
-            else:
-                # air velocity = world lin_vel - wind, rotated body-frame
-                # (models/quadx.py update_state air_vel)
-                if wind["kind"] == "gaussian":
-                    wb = (
-                        wbase
-                        if per_env_wind
-                        else [float(v) for v in wind["base"]]
-                    )
-                    mg = float(wind.get("max_gust", 0.0))
-                    if mg > 0.0:
-                        wv = [
-                            wb[i]
-                            + jnp.clip(normal(contact.shape), -mg, mg)
-                            for i in range(3)
-                        ]
-                    else:
-                        wv = wb
-                else:  # simple thermal (core/wind.py::SimpleWind)
-                    strength = float(wind["strength"])
-                    height = jnp.maximum(pos[2] + 1.0, 0.0)
-                    thermal = jnp.where(
-                        height > 0.0,
-                        jnp.log(jnp.maximum(height, 1e-12)) * strength,
-                        0.0,
-                    )
-                    wv = [
-                        normal(contact.shape),
-                        normal(contact.shape),
-                        thermal + normal(contact.shape),
-                    ]
-                ax = lvel[0] - wv[0]
-                ay = lvel[1] - wv[1]
-                az = lvel[2] - wv[2]
-                new_drg = [
-                    r00 * ax + r10 * ay + r20 * az,
-                    r01 * ax + r11 * ay + r21 * az,
-                    r02 * ax + r12 * ay + r22 * az,
-                ]
-
-            # ---- integrate (semi-implicit Euler, body-frame Euler eqns)
-            fwx = r00 * fx + r01 * fy + r02 * fz
-            fwy = r10 * fx + r11 * fy + r12 * fz
-            fwz = r20 * fx + r21 * fy + r22 * fz
-            lvel = [lvel[0] + dt * (fwx / mass),
-                    lvel[1] + dt * (fwy / mass),
-                    lvel[2] + dt * (fwz / mass - g)]
-            ob = [r00 * avel[0] + r10 * avel[1] + r20 * avel[2],
-                  r01 * avel[0] + r11 * avel[1] + r21 * avel[2],
-                  r02 * avel[0] + r12 * avel[1] + r22 * avel[2]]
-            gx = ob[1] * inertia[2] * ob[2] - ob[2] * inertia[1] * ob[1]
-            gy = ob[2] * inertia[0] * ob[0] - ob[0] * inertia[2] * ob[2]
-            gz = ob[0] * inertia[1] * ob[1] - ob[1] * inertia[0] * ob[0]
-            ob = [ob[0] + dt * (tx - gx) / inertia[0],
-                  ob[1] + dt * (ty - gy) / inertia[1],
-                  ob[2] + dt * (tz - gz) / inertia[2]]
-            avel = [r00 * ob[0] + r01 * ob[1] + r02 * ob[2],
-                    r10 * ob[0] + r11 * ob[1] + r12 * ob[2],
-                    r20 * ob[0] + r21 * ob[1] + r22 * ob[2]]
-            pos = [pos[0] + dt * lvel[0], pos[1] + dt * lvel[1],
-                   pos[2] + dt * lvel[2]]
-            # quaternion integration: exact exponential map
-            thx, thy, thz = avel[0] * dt, avel[1] * dt, avel[2] * dt
-            sq = thx * thx + thy * thy + thz * thz
-            small = sq < 1e-16
-            ang = jnp.sqrt(jnp.where(small, 1.0, sq))
-            half = 0.5 * ang
-            sinc = jnp.where(small, 0.5 - sq / 48.0, jnp.sin(half) / ang)
-            ch = jnp.where(small, 1.0 - sq / 8.0, jnp.cos(half))
-            dx, dy, dz, dw = thx * sinc, thy * sinc, thz * sinc, ch
-            nx = dw * x + dx * w + dy * z - dz * y
-            ny = dw * y - dx * z + dy * w + dz * x
-            nz = dw * z + dx * y - dy * x + dz * w
-            nw = dw * w - dx * x - dy * y - dz * z
-            norm = jax.lax.rsqrt(nx * nx + ny * ny + nz * nz + nw * nw)
-            quat = [nx * norm, ny * norm, nz * norm, nw * norm]
-
-            # ---- ground contact: exact box support point along -z
-            x, y, z, w = quat
-            a20 = jnp.abs(2 * (x * z - w * y))
-            a21 = jnp.abs(2 * (y * z + w * x))
-            a22 = jnp.abs(1 - 2 * (x * x + y * y))
-            extent = a20 * hx + a21 * hy + a22 * hz
-            depth = extent - pos[2]
-            hit = (depth > 0.0).astype(jnp.float32)
-            pos[2] = pos[2] + hit * jnp.maximum(depth, 0.0)
-            # inelastic vertical stop (detection-grade resolution)
-            lvel = [lvel[0], lvel[1],
-                    jnp.where((hit > 0) & (lvel[2] < 0), 0.0, lvel[2])]
-            contact = hit
-            any_contact = jnp.maximum(any_contact, hit)
-            view = new_view
-            avb = avb_new
-            drg = new_drg
-            # pre-integration rotation of this iteration: after the last
-            # iteration it equals rotmat(euler_to_quat(view euler)) up to f32
-            # roundoff (the waypoint task update rotates deltas with it)
-            Rlast = (r00, r01, r02, r10, r11, r12, r20, r21, r22)
-
-          if env_fuse is not None:
-            # ---- fused task update (quadx_hover.py / quadx_waypoints.py
-            # _task_update) on the candidate state, then the done-freeze
-            # (quadx_base.py:220-232)
-            vx, vy, vz = view[9], view[10], view[11]  # lagged lin_pos
-            oob_i = ((vx * vx + vy * vy + vz * vz) > dome2).astype(
-                jnp.float32
-            )
-            fatal = jnp.maximum(any_contact, oob_i)
-            trunc_c = jnp.minimum(trunc + trunc_hit, 1.0)
-            rwd_c = jnp.where(fatal > 0.0, -100.0, rwd)
-            if wpf is None:
-                if not env_fuse["sparse"]:
-                    dxt, dyt, dzt = vx, vy, vz - 1.0
-                    lin_d = jnp.sqrt(dxt * dxt + dyt * dyt + dzt * dzt)
-                    ang_d = jnp.sqrt(view[3] * view[3] + view[4] * view[4])
-                    rwd_c = rwd_c - lin_d - ang_d + 1.0
-            else:
-                # waypoint tracking (quadx_waypoints.py:102-135 +
-                # envs/utils/waypoints.py) on the pre-integration rotation;
-                # shared register math in pallas_math.waypoint_track
-                (tgt_c, rem_c, ndist_new, odist_c, progress, tdlt_c,
-                 reached, all_reached) = pmk.waypoint_track(
-                    Rlast, (vx, vy, vz), tgt, rem, ndist, NT, goal
-                )
-                if not env_fuse["sparse"]:
-                    rwd_c = (
-                        rwd_c
-                        + jnp.maximum(3.0 * progress, 0.0)
-                        + 0.1 / ndist_new
-                    )
-                rwd_c = jnp.where(reached > 0.0, 100.0, rwd_c)
-                trunc_c = jnp.minimum(trunc_c + all_reached, 1.0)
-                cplt_c = jnp.minimum(cplt + all_reached, 1.0)
-            term_c = jnp.minimum(term + fatal, 1.0)
-            coll_c = jnp.minimum(coll + any_contact, 1.0)
-            oobf_c = jnp.minimum(oobf + oob_i, 1.0)
-            keep = done_before
-            sel = lambda old_v, new_v: keep * old_v + (1.0 - keep) * new_v
-            (s_pos, s_quat, s_lvel, s_avel, s_view, s_avb, s_drg, s_thr,
-             s_pwm, s_pint, s_pprv, s_con, s_rwd, s_term, s_trunc, s_coll,
-             s_oobf) = snap
-            pos = [sel(o, n_) for o, n_ in zip(s_pos, pos)]
-            quat = [sel(o, n_) for o, n_ in zip(s_quat, quat)]
-            lvel = [sel(o, n_) for o, n_ in zip(s_lvel, lvel)]
-            avel = [sel(o, n_) for o, n_ in zip(s_avel, avel)]
-            view = [sel(o, n_) for o, n_ in zip(s_view, view)]
-            avb = [sel(o, n_) for o, n_ in zip(s_avb, avb)]
-            drg = [sel(o, n_) for o, n_ in zip(s_drg, drg)]
-            thr = [sel(o, n_) for o, n_ in zip(s_thr, thr)]
-            pwm = [sel(o, n_) for o, n_ in zip(s_pwm, pwm)]
-            pint = [sel(o, n_) for o, n_ in zip(s_pint, pint)]
-            pprv = [sel(o, n_) for o, n_ in zip(s_pprv, pprv)]
+        def aviary_step(a, C):
+            (pos, quat, lvel, avel, view, avb, drg, thr, pwm, pint, pprv,
+             contact, any_contact, Rlast) = (C[n] for n in _DRONE)
+            rwd, term, trunc, coll, oobf = (C.get(n) for n in _ENV)
+            tgt, rem, ndist, odist, tdlt, cplt = (C.get(n) for n in _WP)
             if mode == 7:
-                ext_restore(
-                    [sel(o, n_) for o, n_ in zip(snap_ext, ext_flat())]
+                ext_restore(C["ext_regs"])
+            if env_fuse is not None:
+              done_before = jnp.minimum(jnp.maximum(term, trunc), 1.0)
+              snap = (
+                  list(pos), list(quat), list(lvel), list(avel), list(view),
+                  list(avb), list(drg), list(thr), list(pwm), list(pint),
+                  list(pprv), contact, rwd, term, trunc, coll, oobf,
+              )
+              snap_ext = ext_flat() if mode == 7 else None
+              if wpf is not None:
+                  snap_wp = (
+                      list(tgt), rem, ndist, odist, list(tdlt), cplt,
+                  )
+              any_contact = jnp.zeros_like(contact)
+
+            # ---------------- control (aviary.py:480-484), once per
+            # aviary step, before its physics iterations
+            if mode == 8:
+                # direct PWM (quadx.py:452-454); saturation still applies
+                raw = [sp[0], sp[1], sp[2], sp[3]]
+            elif mode == 9:
+                # raw motor mix (fork mode): motor_map @ setpoint, no
+                # PID, no z clip (models/quadx.py:377-378)
+                raw = [
+                    mmap[m, 0] * sp[0] + mmap[m, 1] * sp[1]
+                    + mmap[m, 2] * sp[2] + mmap[m, 3] * sp[3]
+                    for m in range(4)
+                ]
+            else:  # modes 0/7: PID cascade + z clip (quadx.py:465-561)
+                if mode == 7:
+                    # position cascade: lin_pos -> yaw frame -> lin_vel
+                    # -> axis swap -> ang_pos, z_pos -> z_vel
+                    xy = pid_bank(
+                        "lp", "lin_pos",
+                        [view[9], view[10]], [sp[0], sp[1]],
+                    )
+                    cy, sy = jnp.cos(view[5]), jnp.sin(view[5])
+                    xy = [cy * xy[0] + sy * xy[1],
+                          -sy * xy[0] + cy * xy[1]]
+                    xy = pid_bank("lv", "lin_vel", [view[6], view[7]], xy)
+                    xy = [-xy[1], xy[0]]  # ENU swap (quadx.py:472-515)
+                    a_sp = pid_bank(
+                        "ap", "ang_pos",
+                        [view[3], view[4], view[5]],
+                        [xy[0], xy[1], sp[2]],
+                    )
+                    z1 = pid_bank("zp", "z_pos", [view[11]], [sp[3]])
+                    z1 = pid_bank("zv", "z_vel", [view[8]], z1)
+                    z_cmd = jnp.clip(z1[0], 0.0, 1.0)
+                else:  # mode 0: setpoint IS the ang_vel command
+                    a_sp = [sp[0], sp[1], sp[2]]
+                    if ned:
+                        # clip(z, -1, 0) then negate (quadx.py:425+441)
+                        z_cmd = jnp.clip(
+                            -jnp.clip(sp[3], -1.0, 0.0), 0.0, 1.0
+                        )
+                    else:
+                        z_cmd = jnp.clip(sp[3], 0.0, 1.0)
+                cmd = []
+                for i in range(3):
+                    err = a_sp[i] - view[0 + i]  # view rows 0-2 = ang_vel
+                    pint[i] = jnp.clip(
+                        pint[i] + ki[i] * err * period, -lim[i], lim[i]
+                    )
+                    deriv = kd[i] * (err - pprv[i]) / period
+                    pprv[i] = err
+                    cmd.append(
+                        jnp.clip(kp[i] * err + pint[i] + deriv, -lim[i], lim[i])
+                    )
+                cmd.append(z_cmd)
+                raw = [
+                    mmap[m, 0] * cmd[0] + mmap[m, 1] * cmd[1]
+                    + mmap[m, 2] * cmd[2] + mmap[m, 3] * cmd[3]
+                    for m in range(4)
+                ]
+            # saturation rescale (quadx.py:553-561)
+            high = jnp.maximum(jnp.maximum(raw[0], raw[1]),
+                               jnp.maximum(raw[2], raw[3]))
+            low = jnp.minimum(jnp.minimum(raw[0], raw[1]),
+                              jnp.minimum(raw[2], raw[3]))
+            pmax = jnp.minimum(high, max_pwm)
+            pmin = jnp.maximum(low, min_pwm)
+            dh = jnp.where(high != low, pmax - low, 1.0)
+            dl = jnp.where(high != low, high - pmin, 1.0)
+            pwm = [
+                jnp.clip(
+                    jnp.where(
+                        high != low,
+                        r + (pmin - low) / dh * (pmax - r)
+                        - (high - pmax) / dl * (r - pmin),
+                        r,
+                    ),
+                    min_pwm,
+                    max_pwm,
                 )
-            contact = sel(s_con, contact)
-            rwd = sel(s_rwd, rwd_c)
-            term = sel(s_term, term_c)
-            trunc = sel(s_trunc, trunc_c)
-            coll = sel(s_coll, coll_c)
-            oobf = sel(s_oobf, oobf_c)
-            if wpf is not None:
-                (s_tgt, s_rem, s_ndist, s_odist, s_tdlt, s_cplt) = snap_wp
-                tgt = [sel(o, n_) for o, n_ in zip(s_tgt, tgt_c)]
-                rem = sel(s_rem, rem_c)
-                ndist = sel(s_ndist, ndist_new)
-                odist = sel(s_odist, odist_c)
-                tdlt = [sel(o, n_) for o, n_ in zip(s_tdlt, tdlt_c)]
-                cplt = sel(s_cplt, cplt_c)
+                for r in raw
+            ]
+
+
+            def physics_iter(k, P):
+                (thr, pos, quat, lvel, avel, view, avb, drg, contact,
+                 any_contact, Rlast) = (P[n] for n in _PHYS)
+                rng_k = rng.child(a * ratio + k) if noisy or wind_stochastic else None
+                # ---------------- physics iteration (models/quadx.py physics_iter)
+                # motor throttle lag + noise
+                if noisy:
+                    nrm = [rng_k.normal() for _ in range(4)]
+                for m in range(4):
+                    thr[m] = thr[m] + (dt / tau[m]) * (pwm[m] - thr[m])
+                    if noisy:
+                        thr[m] = thr[m] + nrm[m] * thr[m] * noise_ratio[m]
+
+                # wrench from the LAGGED read state
+                fz = jnp.zeros_like(thr[0])
+                tx = jnp.zeros_like(thr[0])
+                ty = jnp.zeros_like(thr[0])
+                tz = jnp.zeros_like(thr[0])
+                for m in range(4):
+                    rpm = thr[m] * max_rpm[m]
+                    rc = rpm * rpm * jnp.sign(rpm)
+                    f = rc * ct[m]
+                    fz = fz + f
+                    tx = tx + mpos[m][1] * f  # r × F for F along +z
+                    ty = ty - mpos[m][0] * f
+                    tz = tz + rc * cq[m]
+                fdx = -jnp.sign(drg[0]) * drag_k[0] * drg[0] * drg[0]
+                fdy = -jnp.sign(drg[1]) * drag_k[1] * drg[1] * drg[1]
+                fdz = -jnp.sign(drg[2]) * drag_k[2] * drg[2] * drg[2]
+                nc = 1.0 - contact
+                tx = tx - nc * jnp.sign(avb[0]) * drag_pqr * avb[0] * avb[0]
+                ty = ty - nc * jnp.sign(avb[1]) * drag_pqr * avb[1] * avb[1]
+                tz = tz - nc * jnp.sign(avb[2]) * drag_pqr * avb[2] * avb[2]
+                fx, fy, fz = fdx, fdy, fz + fdz
+
+                # rotation matrix from quat (body->world)
+                x, y, z, w = quat
+                r00 = 1 - 2 * (y * y + z * z); r01 = 2 * (x * y - w * z); r02 = 2 * (x * z + w * y)
+                r10 = 2 * (x * y + w * z); r11 = 1 - 2 * (x * x + z * z); r12 = 2 * (y * z - w * x)
+                r20 = 2 * (x * z - w * y); r21 = 2 * (y * z + w * x); r22 = 1 - 2 * (x * x + y * y)
+
+                # ---- NEW read snapshot (pre-integration state; quadx update_state)
+                lvb = [r00 * lvel[0] + r10 * lvel[1] + r20 * lvel[2],
+                       r01 * lvel[0] + r11 * lvel[1] + r21 * lvel[2],
+                       r02 * lvel[0] + r12 * lvel[1] + r22 * lvel[2]]
+                avb_new = [r00 * avel[0] + r10 * avel[1] + r20 * avel[2],
+                           r01 * avel[0] + r11 * avel[1] + r21 * avel[2],
+                           r02 * avel[0] + r12 * avel[1] + r22 * avel[2]]
+                # euler from quat (pm.quat_to_euler)
+                roll, pitch, yaw = pmk.quat_to_euler(quat)
+                if ned:
+                    # NED/FRD read convention (models/quadx.py update_state:
+                    # flu_vec_to_frd on body rates/vels, enu_euler_to_ned,
+                    # enu_pos_to_ned); the body state itself stays ENU
+                    new_view = [
+                        avb_new[0], -avb_new[1], -avb_new[2],
+                        roll, -pitch, (np.pi / 2.0) - yaw,
+                        lvb[0], -lvb[1], -lvb[2],
+                        pos[1], pos[0], -pos[2],
+                    ]
+                else:
+                    new_view = [
+                        avb_new[0], avb_new[1], avb_new[2], roll, pitch, yaw,
+                        lvb[0], lvb[1], lvb[2], pos[0], pos[1], pos[2],
+                    ]
+                if wind is None:
+                    new_drg = lvb
+                else:
+                    # air velocity = world lin_vel - wind, rotated body-frame
+                    # (models/quadx.py update_state air_vel)
+                    if wind["kind"] == "gaussian":
+                        wb = (
+                            wbase
+                            if per_env_wind
+                            else [float(v) for v in wind["base"]]
+                        )
+                        mg = float(wind.get("max_gust", 0.0))
+                        if mg > 0.0:
+                            wv = [
+                                wb[i]
+                                + jnp.clip(rng_k.normal(), -mg, mg)
+                                for i in range(3)
+                            ]
+                        else:
+                            wv = wb
+                    else:  # simple thermal (core/wind.py::SimpleWind)
+                        strength = float(wind["strength"])
+                        height = jnp.maximum(pos[2] + 1.0, 0.0)
+                        thermal = jnp.where(
+                            height > 0.0,
+                            jnp.log(jnp.maximum(height, 1e-12)) * strength,
+                            0.0,
+                        )
+                        wv = [
+                            rng_k.normal(),
+                            rng_k.normal(),
+                            thermal + rng_k.normal(),
+                        ]
+                    ax = lvel[0] - wv[0]
+                    ay = lvel[1] - wv[1]
+                    az = lvel[2] - wv[2]
+                    new_drg = [
+                        r00 * ax + r10 * ay + r20 * az,
+                        r01 * ax + r11 * ay + r21 * az,
+                        r02 * ax + r12 * ay + r22 * az,
+                    ]
+
+                # ---- integrate (semi-implicit Euler, body-frame Euler eqns)
+                fwx = r00 * fx + r01 * fy + r02 * fz
+                fwy = r10 * fx + r11 * fy + r12 * fz
+                fwz = r20 * fx + r21 * fy + r22 * fz
+                lvel = [lvel[0] + dt * (fwx / mass),
+                        lvel[1] + dt * (fwy / mass),
+                        lvel[2] + dt * (fwz / mass - g)]
+                ob = [r00 * avel[0] + r10 * avel[1] + r20 * avel[2],
+                      r01 * avel[0] + r11 * avel[1] + r21 * avel[2],
+                      r02 * avel[0] + r12 * avel[1] + r22 * avel[2]]
+                gx = ob[1] * inertia[2] * ob[2] - ob[2] * inertia[1] * ob[1]
+                gy = ob[2] * inertia[0] * ob[0] - ob[0] * inertia[2] * ob[2]
+                gz = ob[0] * inertia[1] * ob[1] - ob[1] * inertia[0] * ob[0]
+                ob = [ob[0] + dt * (tx - gx) / inertia[0],
+                      ob[1] + dt * (ty - gy) / inertia[1],
+                      ob[2] + dt * (tz - gz) / inertia[2]]
+                avel = [r00 * ob[0] + r01 * ob[1] + r02 * ob[2],
+                        r10 * ob[0] + r11 * ob[1] + r12 * ob[2],
+                        r20 * ob[0] + r21 * ob[1] + r22 * ob[2]]
+                pos = [pos[0] + dt * lvel[0], pos[1] + dt * lvel[1],
+                       pos[2] + dt * lvel[2]]
+                # quaternion integration: exact exponential map
+                thx, thy, thz = avel[0] * dt, avel[1] * dt, avel[2] * dt
+                sq = thx * thx + thy * thy + thz * thz
+                small = sq < 1e-16
+                ang = jnp.sqrt(jnp.where(small, 1.0, sq))
+                half = 0.5 * ang
+                sinc = jnp.where(small, 0.5 - sq / 48.0, jnp.sin(half) / ang)
+                ch = jnp.where(small, 1.0 - sq / 8.0, jnp.cos(half))
+                dx, dy, dz, dw = thx * sinc, thy * sinc, thz * sinc, ch
+                nx = dw * x + dx * w + dy * z - dz * y
+                ny = dw * y - dx * z + dy * w + dz * x
+                nz = dw * z + dx * y - dy * x + dz * w
+                nw = dw * w - dx * x - dy * y - dz * z
+                norm = jax.lax.rsqrt(nx * nx + ny * ny + nz * nz + nw * nw)
+                quat = [nx * norm, ny * norm, nz * norm, nw * norm]
+
+                # ---- ground contact: exact box support point along -z
+                x, y, z, w = quat
+                a20 = jnp.abs(2 * (x * z - w * y))
+                a21 = jnp.abs(2 * (y * z + w * x))
+                a22 = jnp.abs(1 - 2 * (x * x + y * y))
+                extent = a20 * hx + a21 * hy + a22 * hz
+                depth = extent - pos[2]
+                hit = (depth > 0.0).astype(jnp.float32)
+                pos[2] = pos[2] + hit * jnp.maximum(depth, 0.0)
+                # inelastic vertical stop (detection-grade resolution)
+                lvel = [lvel[0], lvel[1],
+                        jnp.where((hit > 0) & (lvel[2] < 0), 0.0, lvel[2])]
+                contact = hit
+                any_contact = jnp.maximum(any_contact, hit)
+                view = new_view
+                avb = avb_new
+                drg = new_drg
+                # pre-integration rotation of this iteration: after the last
+                # iteration it equals rotmat(euler_to_quat(view euler)) up to f32
+                # roundoff (the waypoint task update rotates deltas with it)
+                Rlast = (r00, r01, r02, r10, r11, r12, r20, r21, r22)
+
+                L = locals()
+                return {n: L[n] for n in _PHYS}
+
+            L = locals()
+            P = pmk.fori(ratio, physics_iter, {n: L[n] for n in _PHYS})
+            (thr, pos, quat, lvel, avel, view, avb, drg, contact,
+             any_contact, Rlast) = (P[n] for n in _PHYS)
+            if env_fuse is not None:
+              # ---- fused task update (quadx_hover.py / quadx_waypoints.py
+              # _task_update) on the candidate state, then the done-freeze
+              # (quadx_base.py:220-232)
+              vx, vy, vz = view[9], view[10], view[11]  # lagged lin_pos
+              oob_i = ((vx * vx + vy * vy + vz * vz) > dome2).astype(
+                  jnp.float32
+              )
+              fatal = jnp.maximum(any_contact, oob_i)
+              trunc_c = jnp.minimum(trunc + trunc_hit, 1.0)
+              rwd_c = jnp.where(fatal > 0.0, -100.0, rwd)
+              if wpf is None:
+                  if not env_fuse["sparse"]:
+                      dxt, dyt, dzt = vx, vy, vz - 1.0
+                      lin_d = jnp.sqrt(dxt * dxt + dyt * dyt + dzt * dzt)
+                      ang_d = jnp.sqrt(view[3] * view[3] + view[4] * view[4])
+                      rwd_c = rwd_c - lin_d - ang_d + 1.0
+              else:
+                  # waypoint tracking (quadx_waypoints.py:102-135 +
+                  # envs/utils/waypoints.py) on the pre-integration rotation;
+                  # shared register math in pallas_math.waypoint_track
+                  (tgt_c, rem_c, ndist_new, odist_c, progress, tdlt_c,
+                   reached, all_reached) = pmk.waypoint_track(
+                      Rlast, (vx, vy, vz), tgt, rem, ndist, NT, goal
+                  )
+                  if not env_fuse["sparse"]:
+                      rwd_c = (
+                          rwd_c
+                          + jnp.maximum(3.0 * progress, 0.0)
+                          + 0.1 / ndist_new
+                      )
+                  rwd_c = jnp.where(reached > 0.0, 100.0, rwd_c)
+                  trunc_c = jnp.minimum(trunc_c + all_reached, 1.0)
+                  cplt_c = jnp.minimum(cplt + all_reached, 1.0)
+              term_c = jnp.minimum(term + fatal, 1.0)
+              coll_c = jnp.minimum(coll + any_contact, 1.0)
+              oobf_c = jnp.minimum(oobf + oob_i, 1.0)
+              keep = done_before
+              sel = lambda old_v, new_v: keep * old_v + (1.0 - keep) * new_v
+              (s_pos, s_quat, s_lvel, s_avel, s_view, s_avb, s_drg, s_thr,
+               s_pwm, s_pint, s_pprv, s_con, s_rwd, s_term, s_trunc, s_coll,
+               s_oobf) = snap
+              pos = [sel(o, n_) for o, n_ in zip(s_pos, pos)]
+              quat = [sel(o, n_) for o, n_ in zip(s_quat, quat)]
+              lvel = [sel(o, n_) for o, n_ in zip(s_lvel, lvel)]
+              avel = [sel(o, n_) for o, n_ in zip(s_avel, avel)]
+              view = [sel(o, n_) for o, n_ in zip(s_view, view)]
+              avb = [sel(o, n_) for o, n_ in zip(s_avb, avb)]
+              drg = [sel(o, n_) for o, n_ in zip(s_drg, drg)]
+              thr = [sel(o, n_) for o, n_ in zip(s_thr, thr)]
+              pwm = [sel(o, n_) for o, n_ in zip(s_pwm, pwm)]
+              pint = [sel(o, n_) for o, n_ in zip(s_pint, pint)]
+              pprv = [sel(o, n_) for o, n_ in zip(s_pprv, pprv)]
+              if mode == 7:
+                  ext_restore(
+                      [sel(o, n_) for o, n_ in zip(snap_ext, ext_flat())]
+                  )
+              contact = sel(s_con, contact)
+              rwd = sel(s_rwd, rwd_c)
+              term = sel(s_term, term_c)
+              trunc = sel(s_trunc, trunc_c)
+              coll = sel(s_coll, coll_c)
+              oobf = sel(s_oobf, oobf_c)
+              if wpf is not None:
+                  (s_tgt, s_rem, s_ndist, s_odist, s_tdlt, s_cplt) = snap_wp
+                  tgt = [sel(o, n_) for o, n_ in zip(s_tgt, tgt_c)]
+                  rem = sel(s_rem, rem_c)
+                  ndist = sel(s_ndist, ndist_new)
+                  odist = sel(s_odist, odist_c)
+                  tdlt = [sel(o, n_) for o, n_ in zip(s_tdlt, tdlt_c)]
+                  cplt = sel(s_cplt, cplt_c)
+
+            ext_regs = ext_flat() if mode == 7 else None
+            L = locals()
+            return {n: L[n] for n in carried}
+
+        Rlast = (jnp.zeros_like(contact),) * 9
+        ext_regs = ext_flat() if mode == 7 else None
+        carried = list(_DRONE)
+        if env_fuse is not None:
+            carried += list(_ENV) + (list(_WP) if wpf is not None else [])
+        if mode == 7:
+            carried.append("ext_regs")
+        L = locals()
+        C = pmk.fori(n_aviary, aviary_step, {n: L[n] for n in carried})
+        (pos, quat, lvel, avel, view, avb, drg, thr, pwm, pint, pprv,
+         contact, any_contact, Rlast) = (C[n] for n in _DRONE)
+        rwd, term, trunc, coll, oobf = (C.get(n) for n in _ENV)
+        tgt, rem, ndist, odist, tdlt, cplt = (C.get(n) for n in _WP)
+        if mode == 7:
+            ext_restore(C["ext_regs"])
 
         # ---- pack back
         out = [None] * (
@@ -804,11 +819,7 @@ def _build_kernel(params: quadx.QuadXParams, cfg: quadx.QuadXConfig, mode: int,
             ]
             for r, v in zip(base_rows, flat):
                 out[r] = v
-        zero = jnp.zeros_like(contact)
-        for i in range(len(out)):  # spare/pad rows
-            if out[i] is None:
-                out[i] = zero
-        o_ref[:] = jnp.stack(out, axis=0)
+        return out
 
     return kernel
 
@@ -820,7 +831,6 @@ def packed_step(
     cfg: quadx.QuadXConfig,
     mode: int = 0,
     noisy: bool = True,
-    tile: int = 512,
     wind: dict | None = None,
 ) -> Array:
     """One aviary step on the packed (ROWS, 8, N/8) state. Row ``_CON + 1``
@@ -831,7 +841,7 @@ def packed_step(
     closure, not a traced argument. Wrap the caller in ``jax.jit``.
     """
     kernel = _build_kernel(params, cfg, mode, noisy, wind=wind)
-    return pmk.grid_call(kernel, packed, seed, tile)
+    return pmk.grid_call(kernel, packed, seed)
 
 
 def packed_hover_step(
@@ -845,7 +855,6 @@ def packed_hover_step(
     dome: float,
     max_steps: int,
     sparse: bool = False,
-    tile: int = 1024,  # best of {256, 512, 1024} at 8192 envs on v5e
 ) -> Array:
     """One FULL hover-env agent step on the packed (ROWS, 8, N/8) state:
     ``inner_steps`` aviary steps + reward shaping + termination/truncation +
@@ -858,7 +867,7 @@ def packed_hover_step(
             sparse=sparse,
         ),
     )
-    return pmk.grid_call(kernel, packed, seed, tile)
+    return pmk.grid_call(kernel, packed, seed)
 
 
 def packed_waypoints_step(
@@ -874,7 +883,6 @@ def packed_waypoints_step(
     num_targets: int,
     goal_dist: float,
     sparse: bool = False,
-    tile: int = 1024,
 ) -> Array:
     """One FULL waypoints-env agent step on the packed
     (rows_for_waypoints(mode), 8, N/8) state: ``inner_steps`` aviary steps +
@@ -889,7 +897,7 @@ def packed_waypoints_step(
             waypoints=dict(num_targets=num_targets, goal_dist=goal_dist),
         ),
     )
-    return pmk.grid_call(kernel, packed, seed, tile)
+    return pmk.grid_call(kernel, packed, seed)
 
 
 def step(

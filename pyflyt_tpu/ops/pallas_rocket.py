@@ -1,11 +1,11 @@
-"""Pallas TPU kernel: fused Rocket-Landing agent step.
+"""Pallas kernel (Triton route): fused Rocket-Landing agent step.
 
 The quadx/fixedwing treatment applied to the rocket: the whole drone state
 packs into a folded ``(88, 8, N/8)`` f32 array and one kernel call runs the
 ENTIRE landing-env agent step — ``env_step_ratio`` aviary steps, each with
 ``physics_control_ratio`` 240 Hz physics iterations, plus the task update,
-termination bookkeeping and the done-freeze — register-resident per
-128-env vector.
+termination bookkeeping and the done-freeze — in registers, one env per GPU
+thread (ops/pallas_math.grid_call).
 
 What makes the rocket different from the fixed-wing (and why its XLA path is
 slow): the composite mass/CoM/inertia track the burning fuel EVERY physics
@@ -36,9 +36,8 @@ _task_update): memo-lagged velocity/distance shifts, dense shaped reward,
 pad touchdown / hard-landing / landed logic, base termination and the
 done-freeze.
 
-Deviations (same class as the other kernels): kernel-internal PRNG for
-booster noise (same distribution, different stream); polynomial
-atan2/asin. Parity with the XLA env is asserted in
+Deviations (same class as the other kernels): counter-hash normals for
+booster noise (same distribution, different stream). Parity with the XLA env is asserted in
 tests/test_pallas_rocket.py (noise off).
 """
 
@@ -318,6 +317,14 @@ def _rodrigues_pair(B, a1, a2):
     return apply(B["g_w1"], B["g_w1sq"], s1, q1, v)
 
 
+# registers carried through the kernel's aviary-step and physics loops
+_DRONE = ("pos", "quat", "lvel", "avel", "view", "flv", "dlv", "act", "fuel",
+          "bthr", "ign", "gbl", "contact", "gcon", "pcon")
+_ENV = ("rwd", "term", "trunc", "fatc", "oobf", "cplt", "pflag", "av", "lv",
+        "dist", "pav", "plv", "pdist")
+_PHYS = _DRONE + ("any_ground", "any_pad")
+
+
 def _build_kernel(
     params: rocket.RocketParams,
     cfg: rocket.RocketConfig,
@@ -330,14 +337,7 @@ def _build_kernel(
     dt = B["dt"]
     g = 9.81
 
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(seed_ref, s_ref, o_ref):
-        if noisy:
-            pltpu.prng_seed(seed_ref[0] + pl.program_id(0))
-        S = s_ref[:]  # (ROWS, 8, TILE)
-
+    def kernel(S, rng):
         pos = [S[_POS + i] for i in range(3)]
         quat = [S[_QUAT + i] for i in range(4)]
         lvel = [S[_LVEL + i] for i in range(3)]
@@ -394,388 +394,417 @@ def _build_kernel(
             padp = [S[_PADP + i] for i in range(3)]
             n_aviary = 1
 
-        for _a in range(n_aviary):
-          if env_fuse is not None:
-            done_before = jnp.minimum(term + trunc, 1.0)
-            snap = (
-                list(pos), list(quat), list(lvel), list(avel), list(view),
-                list(flv), list(dlv), list(act), fuel, bthr, ign, list(gbl),
-                contact, gcon, pcon, rwd, term, trunc, fatc, oobf, cplt,
-                pflag, list(av), list(lv), list(dist), list(pav), list(plv),
-                list(pdist),
-            )
-          any_ground = zero
-          any_pad = zero
+        def aviary_step(a, C):
+            (pos, quat, lvel, avel, view, flv, dlv, act, fuel, bthr, ign, gbl,
+             contact, gcon, pcon) = (C[n] for n in _DRONE)
+            (rwd, term, trunc, fatc, oobf, cplt, pflag, av, lv, dist, pav, plv,
+             pdist) = (C.get(n) for n in _ENV)
+            if env_fuse is not None:
+              done_before = jnp.minimum(term + trunc, 1.0)
+              snap = (
+                  list(pos), list(quat), list(lvel), list(avel), list(view),
+                  list(flv), list(dlv), list(act), fuel, bthr, ign, list(gbl),
+                  contact, gcon, pcon, rwd, term, trunc, fatc, oobf, cplt,
+                  pflag, list(av), list(lv), list(dist), list(pav), list(plv),
+                  list(pdist),
+              )
+            any_ground = zero
+            any_pad = zero
 
-          for _it in range(B["ratio"]):
-            # ---- pre-update composite CoM (drag + finlet lever arms use the
-            # PRE-burn fuel load — models/rocket.py _current_com)
-            fm_pre = fuel * B["b_total_fuel"]
-            _, _, com_pre = _mass_com(B, fm_pre)
 
-            # ---- body drag at the fuel-tank link (boring_bodies semantics,
-            # models/rocket.py:324-329)
-            f = [zero, zero, zero]
-            t = [zero, zero, zero]
-            for i in range(3):
-                v = dlv[i]
-                f[i] = f[i] - jnp.sign(v) * float(B["drag_const"][i]) * v * v
-            r_drag = [float(B["drag_pos"][i]) - com_pre[i] for i in range(3)]
-            t[0] = t[0] + r_drag[1] * f[2] - r_drag[2] * f[1]
-            t[1] = t[1] + r_drag[2] * f[0] - r_drag[0] * f[2]
-            t[2] = t[2] + r_drag[0] * f[1] - r_drag[1] * f[0]
+            def physics_iter(k, P):
+                (pos, quat, lvel, avel, view, flv, dlv, act, fuel, bthr, ign,
+                 gbl, contact, gcon, pcon, any_ground, any_pad) = (
+                    P[n] for n in _PHYS)
+                rng_k = rng.child(a * B["ratio"] + k) if noisy else None
+                # ---- pre-update composite CoM (drag + finlet lever arms use the
+                # PRE-burn fuel load — models/rocket.py _current_com)
+                fm_pre = fuel * B["b_total_fuel"]
+                _, _, com_pre = _mass_com(B, fm_pre)
 
-            # ---- finlets: actuation lag + Khan wrench with register lever
-            # arms (models/rocket.py:331-340)
-            for si in range(4):
-                act[si] = act[si] + (dt / B["surf_tau"][si]) * (
-                    fin_cmd[si] - act[si]
+                # ---- body drag at the fuel-tank link (boring_bodies semantics,
+                # models/rocket.py:324-329)
+                f = [zero, zero, zero]
+                t = [zero, zero, zero]
+                for i in range(3):
+                    v = dlv[i]
+                    f[i] = f[i] - jnp.sign(v) * float(B["drag_const"][i]) * v * v
+                r_drag = [float(B["drag_pos"][i]) - com_pre[i] for i in range(3)]
+                t[0] = t[0] + r_drag[1] * f[2] - r_drag[2] * f[1]
+                t[1] = t[1] + r_drag[2] * f[0] - r_drag[0] * f[2]
+                t[2] = t[2] + r_drag[0] * f[1] - r_drag[1] * f[0]
+
+                # ---- finlets: actuation lag + Khan wrench with register lever
+                # arms (models/rocket.py:331-340)
+                for si in range(4):
+                    act[si] = act[si] + (dt / B["surf_tau"][si]) * (
+                        fin_cmd[si] - act[si]
+                    )
+                    Ssurf = B["surf"][si]
+                    fn, fp, qcm = pfw.surface_normal_forward(
+                        Ssurf, act[si], flv[3 * si : 3 * si + 3]
+                    )
+                    pmk.add_scaled(f, fn, Ssurf["lu"])
+                    pmk.add_scaled(f, fp, Ssurf["du"])
+                    pmk.add_scaled(t, qcm, Ssurf["tu"])
+                    r_s = [float(Ssurf["pos"][i]) - com_pre[i] for i in range(3)]
+                    # t += r x (fn*lu + fp*du) with concrete unit vectors
+                    fsur = [zero, zero, zero]
+                    pmk.add_scaled(fsur, fn, Ssurf["lu"])
+                    pmk.add_scaled(fsur, fp, Ssurf["du"])
+                    t[0] = t[0] + r_s[1] * fsur[2] - r_s[2] * fsur[1]
+                    t[1] = t[1] + r_s[2] * fsur[0] - r_s[0] * fsur[2]
+                    t[2] = t[2] + r_s[0] * fsur[1] - r_s[1] * fsur[0]
+
+                # ---- gimbal lag + rotation (ops/gimbals.py:82-92)
+                gbl = [
+                    gbl[i] + (dt / B["g_tau"]) * (gbl_cmd[i] - gbl[i])
+                    for i in range(2)
+                ]
+                a1 = gbl[0] * float(B["g_range"][0])
+                a2 = gbl[1] * float(B["g_range"][1])
+                tdir = _rodrigues_pair(B, a1, a2)
+
+                # ---- booster update (ops/boosters.py:68-113)
+                if B["b_reignitable"]:
+                    ign = (ign_cmd > 0.5).astype(jnp.float32)
+                else:
+                    ign = jnp.maximum(ign, (ign_cmd > 0.5).astype(jnp.float32))
+                target = ign * (
+                    pwm_cmd * (1.0 - B["b_min_ratio"]) + B["b_min_ratio"]
                 )
-                Ssurf = B["surf"][si]
-                fn, fp, qcm = pfw.surface_normal_forward(
-                    Ssurf, act[si], flv[3 * si : 3 * si + 3]
-                )
-                pmk.add_scaled(f, fn, Ssurf["lu"])
-                pmk.add_scaled(f, fp, Ssurf["du"])
-                pmk.add_scaled(t, qcm, Ssurf["tu"])
-                r_s = [float(Ssurf["pos"][i]) - com_pre[i] for i in range(3)]
-                # t += r x (fn*lu + fp*du) with concrete unit vectors
-                fsur = [zero, zero, zero]
-                pmk.add_scaled(fsur, fn, Ssurf["lu"])
-                pmk.add_scaled(fsur, fp, Ssurf["du"])
-                t[0] = t[0] + r_s[1] * fsur[2] - r_s[2] * fsur[1]
-                t[1] = t[1] + r_s[2] * fsur[0] - r_s[0] * fsur[2]
-                t[2] = t[2] + r_s[0] * fsur[1] - r_s[1] * fsur[0]
+                bthr = bthr + (dt / B["b_tau"]) * (target - bthr)
+                if noisy:
+                    bthr = bthr + rng_k.normal() * bthr * B["b_noise"]
+                bthr = bthr * (fuel > 0.0).astype(jnp.float32)
+                fuel = jnp.clip(fuel - bthr * B["b_fuel_rate"] * dt, 0.0, 1.0)
+                thrust = bthr * B["b_max_thrust"]
 
-            # ---- gimbal lag + rotation (ops/gimbals.py:82-92)
-            gbl = [
-                gbl[i] + (dt / B["g_tau"]) * (gbl_cmd[i] - gbl[i])
-                for i in range(2)
-            ]
-            a1 = gbl[0] * float(B["g_range"][0])
-            a2 = gbl[1] * float(B["g_range"][1])
-            tdir = _rodrigues_pair(B, a1, a2)
+                # ---- post-burn composite mass properties
+                fm = fuel * B["b_total_fuel"]
+                mass, inv_mass, com = _mass_com(B, fm)
+                I6 = _composite_inertia(B, fm, fuel, com)
 
-            # ---- booster update (ops/boosters.py:68-113)
-            if B["b_reignitable"]:
-                ign = (ign_cmd > 0.5).astype(jnp.float32)
-            else:
-                ign = jnp.maximum(ign, (ign_cmd > 0.5).astype(jnp.float32))
-            target = ign * (
-                pwm_cmd * (1.0 - B["b_min_ratio"]) + B["b_min_ratio"]
-            )
-            bthr = bthr + (dt / B["b_tau"]) * (target - bthr)
-            if noisy:
-                bthr = bthr + pmk.make_normal(bthr.shape) * bthr * B["b_noise"]
-            bthr = bthr * (fuel > 0.0).astype(jnp.float32)
-            fuel = jnp.clip(fuel - bthr * B["b_fuel_rate"] * dt, 0.0, 1.0)
-            thrust = bthr * B["b_max_thrust"]
+                # boost wrench (models/rocket.py:359-366)
+                fb = [thrust * tdir[i] for i in range(3)]
+                r_b = [float(B["b_pos"][i]) - com[i] for i in range(3)]
+                f = [f[i] + fb[i] for i in range(3)]
+                t[0] = t[0] + r_b[1] * fb[2] - r_b[2] * fb[1]
+                t[1] = t[1] + r_b[2] * fb[0] - r_b[0] * fb[2]
+                t[2] = t[2] + r_b[0] * fb[1] - r_b[1] * fb[0]
 
-            # ---- post-burn composite mass properties
-            fm = fuel * B["b_total_fuel"]
-            mass, inv_mass, com = _mass_com(B, fm)
-            I6 = _composite_inertia(B, fm, fuel, com)
-
-            # boost wrench (models/rocket.py:359-366)
-            fb = [thrust * tdir[i] for i in range(3)]
-            r_b = [float(B["b_pos"][i]) - com[i] for i in range(3)]
-            f = [f[i] + fb[i] for i in range(3)]
-            t[0] = t[0] + r_b[1] * fb[2] - r_b[2] * fb[1]
-            t[1] = t[1] + r_b[2] * fb[0] - r_b[0] * fb[2]
-            t[2] = t[2] + r_b[0] * fb[1] - r_b[1] * fb[0]
-
-            # ---- rotation matrix + NEW lagged read (pre-integration state,
-            # post-burn CoM — models/rocket.py:368-370, update_state)
-            R = pmk.quat_rotmat(quat)
-            r00, r01, r02, r10, r11, r12, r20, r21, r22 = R
-            Rcom = [
-                r00 * com[0] + r01 * com[1] + r02 * com[2],
-                r10 * com[0] + r11 * com[1] + r12 * com[2],
-                r20 * com[0] + r21 * com[1] + r22 * com[2],
-            ]
-            base_pos = [pos[i] - Rcom[i] for i in range(3)]
-            bvx = lvel[0] - (avel[1] * Rcom[2] - avel[2] * Rcom[1])
-            bvy = lvel[1] - (avel[2] * Rcom[0] - avel[0] * Rcom[2])
-            bvz = lvel[2] - (avel[0] * Rcom[1] - avel[1] * Rcom[0])
-            lvb = [
-                r00 * bvx + r10 * bvy + r20 * bvz,
-                r01 * bvx + r11 * bvy + r21 * bvz,
-                r02 * bvx + r12 * bvy + r22 * bvz,
-            ]
-            avb = [
-                r00 * avel[0] + r10 * avel[1] + r20 * avel[2],
-                r01 * avel[0] + r11 * avel[1] + r21 * avel[2],
-                r02 * avel[0] + r12 * avel[1] + r22 * avel[2],
-            ]
-            roll, pitch, yaw = pmk.quat_to_euler(quat)
-            new_view = [
-                avb[0], avb[1], avb[2], roll, pitch, yaw,
-                lvb[0], lvb[1], lvb[2],
-                base_pos[0], base_pos[1], base_pos[2],
-            ]
-
-            def local_vel_at(px, py, pz):
-                # R (p - com), then v = lvel + avel x r, then R^T v
-                rx = px - com[0]
-                ry = py - com[1]
-                rz = pz - com[2]
-                rwx = r00 * rx + r01 * ry + r02 * rz
-                rwy = r10 * rx + r11 * ry + r12 * rz
-                rwz = r20 * rx + r21 * ry + r22 * rz
-                vx = lvel[0] + (avel[1] * rwz - avel[2] * rwy)
-                vy = lvel[1] + (avel[2] * rwx - avel[0] * rwz)
-                vz = lvel[2] + (avel[0] * rwy - avel[1] * rwx)
-                return [
-                    r00 * vx + r10 * vy + r20 * vz,
-                    r01 * vx + r11 * vy + r21 * vz,
-                    r02 * vx + r12 * vy + r22 * vz,
+                # ---- rotation matrix + NEW lagged read (pre-integration state,
+                # post-burn CoM — models/rocket.py:368-370, update_state)
+                R = pmk.quat_rotmat(quat)
+                r00, r01, r02, r10, r11, r12, r20, r21, r22 = R
+                Rcom = [
+                    r00 * com[0] + r01 * com[1] + r02 * com[2],
+                    r10 * com[0] + r11 * com[1] + r12 * com[2],
+                    r20 * com[0] + r21 * com[1] + r22 * com[2],
+                ]
+                base_pos = [pos[i] - Rcom[i] for i in range(3)]
+                bvx = lvel[0] - (avel[1] * Rcom[2] - avel[2] * Rcom[1])
+                bvy = lvel[1] - (avel[2] * Rcom[0] - avel[0] * Rcom[2])
+                bvz = lvel[2] - (avel[0] * Rcom[1] - avel[1] * Rcom[0])
+                lvb = [
+                    r00 * bvx + r10 * bvy + r20 * bvz,
+                    r01 * bvx + r11 * bvy + r21 * bvz,
+                    r02 * bvx + r12 * bvy + r22 * bvz,
+                ]
+                avb = [
+                    r00 * avel[0] + r10 * avel[1] + r20 * avel[2],
+                    r01 * avel[0] + r11 * avel[1] + r21 * avel[2],
+                    r02 * avel[0] + r12 * avel[1] + r22 * avel[2],
+                ]
+                roll, pitch, yaw = pmk.quat_to_euler(quat)
+                new_view = [
+                    avb[0], avb[1], avb[2], roll, pitch, yaw,
+                    lvb[0], lvb[1], lvb[2],
+                    base_pos[0], base_pos[1], base_pos[2],
                 ]
 
-            new_flv = []
-            for si in range(4):
-                p_s = B["surf"][si]["pos"]
-                new_flv += local_vel_at(
-                    float(p_s[0]), float(p_s[1]), float(p_s[2])
-                )
-            new_dlv = local_vel_at(
-                float(B["drag_pos"][0]), float(B["drag_pos"][1]),
-                float(B["drag_pos"][2]),
-            )
+                def local_vel_at(px, py, pz):
+                    # R (p - com), then v = lvel + avel x r, then R^T v
+                    rx = px - com[0]
+                    ry = py - com[1]
+                    rz = pz - com[2]
+                    rwx = r00 * rx + r01 * ry + r02 * rz
+                    rwy = r10 * rx + r11 * ry + r12 * rz
+                    rwz = r20 * rx + r21 * ry + r22 * rz
+                    vx = lvel[0] + (avel[1] * rwz - avel[2] * rwy)
+                    vy = lvel[1] + (avel[2] * rwx - avel[0] * rwz)
+                    vz = lvel[2] + (avel[0] * rwy - avel[1] * rwx)
+                    return [
+                        r00 * vx + r10 * vy + r20 * vz,
+                        r01 * vx + r11 * vy + r21 * vz,
+                        r02 * vx + r12 * vy + r22 * vz,
+                    ]
 
-            # ---- integrate (semi-implicit Euler, register-valued full
-            # inertia — core/integrator.py::step)
-            fwx = r00 * f[0] + r01 * f[1] + r02 * f[2]
-            fwy = r10 * f[0] + r11 * f[1] + r12 * f[2]
-            fwz = r20 * f[0] + r21 * f[1] + r22 * f[2]
-            lvel = [
-                lvel[0] + dt * (fwx * inv_mass),
-                lvel[1] + dt * (fwy * inv_mass),
-                lvel[2] + dt * (fwz * inv_mass - g),
-            ]
-            ob = avb  # R^T omega_w
-            ixx, iyy, izz, ixy, ixz, iyz = I6
-            Iw = [
-                ixx * ob[0] + ixy * ob[1] + ixz * ob[2],
-                ixy * ob[0] + iyy * ob[1] + iyz * ob[2],
-                ixz * ob[0] + iyz * ob[1] + izz * ob[2],
-            ]
-            gy = [
-                ob[1] * Iw[2] - ob[2] * Iw[1],
-                ob[2] * Iw[0] - ob[0] * Iw[2],
-                ob[0] * Iw[1] - ob[1] * Iw[0],
-            ]
-            rhs = [t[i] - gy[i] for i in range(3)]
-            dob = _sym_solve(I6, rhs)
-            ob = [ob[i] + dt * dob[i] for i in range(3)]
-            avel = [
-                r00 * ob[0] + r01 * ob[1] + r02 * ob[2],
-                r10 * ob[0] + r11 * ob[1] + r12 * ob[2],
-                r20 * ob[0] + r21 * ob[1] + r22 * ob[2],
-            ]
-            pos = [pos[i] + dt * lvel[i] for i in range(3)]
-            quat = pmk.quat_integrate(quat, avel, dt)
-
-            # ---- pad-aware impulse ground contact
-            # (core/integrator.py::ground_contact with per-point heights from
-            # models/rocket.py::_pad_ground_heights: raised 2 m disc)
-            Rn = pmk.quat_rotmat(quat)
-            n00, n01, n02, n10, n11, n12, n20, n21, n22 = Rn
-            pad_top = padp[2] + 0.05
-            depth_sum = zero
-            max_depth = zero
-            cx_acc = zero
-            cy_acc = zero
-            cz_acc = zero
-            pad_pen = zero
-            gnd_pen = zero
-            for cp in B["contact_pts"]:
-                px = float(cp[0]) - com[0]
-                py = float(cp[1]) - com[1]
-                pz = float(cp[2]) - com[2]
-                wx = n00 * px + n01 * py + n02 * pz
-                wy = n10 * px + n11 * py + n12 * pz
-                wz = n20 * px + n21 * py + n22 * pz
-                gx = pos[0] + wx
-                gy_ = pos[1] + wy
-                gz = pos[2] + wz
-                dxp = gx - padp[0]
-                dyp = gy_ - padp[1]
-                on_pad = (dxp * dxp + dyp * dyp < 4.0).astype(jnp.float32)
-                h = on_pad * pad_top
-                depth = h - gz
-                pen = (depth > 0.0).astype(jnp.float32)
-                pad_pen = jnp.maximum(pad_pen, on_pad * pen)
-                gnd_pen = jnp.maximum(gnd_pen, (1.0 - on_pad) * pen)
-                w = jnp.maximum(depth, 0.0)
-                depth_sum = depth_sum + w
-                max_depth = jnp.maximum(max_depth, depth)
-                cx_acc = cx_acc + w * wx
-                cy_acc = cy_acc + w * wy
-                cz_acc = cz_acc + w * wz
-            hit = jnp.minimum(pad_pen + gnd_pen, 1.0)
-            inv_wsum = 1.0 / jnp.maximum(depth_sum, 1e-12)
-            rwx = cx_acc * inv_wsum
-            rwy = cy_acc * inv_wsum
-            rwz = cz_acc * inv_wsum
-            # world-frame inverse inertia approx: 1 / ((R*R) @ diag(I))
-            iw_inv = [
-                1.0 / (
-                    Rn[3 * i + 0] * Rn[3 * i + 0] * ixx
-                    + Rn[3 * i + 1] * Rn[3 * i + 1] * iyy
-                    + Rn[3 * i + 2] * Rn[3 * i + 2] * izz
-                )
-                for i in range(3)
-            ]
-            vpx = lvel[0] + (avel[1] * rwz - avel[2] * rwy)
-            vpy = lvel[1] + (avel[2] * rwx - avel[0] * rwz)
-            vpz = lvel[2] + (avel[0] * rwy - avel[1] * rwx)
-            # normal impulse (restitution 0)
-            k_n = inv_mass + (rwy * rwy * iw_inv[0] + rwx * rwx * iw_inv[1])
-            # rxn = r x z = (rwy, -rwx, 0)
-            j_n = jnp.maximum(-vpz / k_n, 0.0)
-            j_n = j_n * hit * (vpz < 0.0).astype(jnp.float32)
-            # friction impulse (Coulomb clamp, mu = 0.5)
-            vt = jnp.sqrt(vpx * vpx + vpy * vpy)
-            inv_vt = 1.0 / jnp.maximum(vt, 1e-9)
-            tx = vpx * inv_vt
-            ty = vpy * inv_vt
-            # rxt = r x (tx, ty, 0) = (-rwz*ty, rwz*tx, rwx*ty - rwy*tx)
-            rxt0 = -rwz * ty
-            rxt1 = rwz * tx
-            rxt2 = rwx * ty - rwy * tx
-            k_t = inv_mass + (
-                rxt0 * rxt0 * iw_inv[0]
-                + rxt1 * rxt1 * iw_inv[1]
-                + rxt2 * rxt2 * iw_inv[2]
-            )
-            j_t = jnp.minimum(vt / k_t, 0.5 * j_n) * hit
-            jx = -j_t * tx
-            jy = -j_t * ty
-            jz = j_n
-            dlx = jx * inv_mass
-            dly = jy * inv_mass
-            dlz = jz * inv_mass
-            # dω = (r x j) ⊙ iw_inv
-            dax = (rwy * jz - rwz * jy) * iw_inv[0]
-            day = (rwz * jx - rwx * jz) * iw_inv[1]
-            daz = (rwx * jy - rwy * jx) * iw_inv[2]
-            lvel = [
-                lvel[0] + hit * dlx, lvel[1] + hit * dly, lvel[2] + hit * dlz,
-            ]
-            avel = [
-                avel[0] + hit * dax, avel[1] + hit * day, avel[2] + hit * daz,
-            ]
-            pos[2] = pos[2] + hit * jnp.maximum(max_depth, 0.0)
-
-            contact = hit
-            gcon = gnd_pen
-            pcon = pad_pen
-            any_ground = jnp.maximum(any_ground, gnd_pen)
-            any_pad = jnp.maximum(any_pad, pad_pen)
-            view = new_view
-            flv = new_flv
-            dlv = new_dlv
-
-          if env_fuse is not None:
-            # ---- fused task update (envs/rocket_landing.py _task_update +
-            # envs/rocket_base.py base_term_trunc) on the candidate state,
-            # then the done-freeze (rocket_base.py base_step inner)
-            # compute_state memo shift (rocket_landing_env.py:137-156)
-            pav_c, plv_c, pdist_c = av, lv, dist
-            av_c = view[0:3]
-            lv_c = view[6:9]
-            dist_c = [view[9 + i] - padp[i] for i in range(3)]
-
-            # base_term_trunc (rocket_base_env.py:277-306; no reward overwrite)
-            trunc_c = jnp.minimum(trunc + trunc_hit, 1.0)
-            below = (view[11] < 0.0).astype(jnp.float32)
-            fatal = jnp.minimum(any_ground + below, 1.0)
-            xy2 = view[9] * view[9] + view[10] * view[10]
-            oob_i = jnp.minimum(
-                (xy2 > maxdisp2).astype(jnp.float32)
-                + (view[11] > ceiling).astype(jnp.float32),
-                1.0,
-            )
-            term_c = jnp.minimum(term + fatal + oob_i, 1.0)
-            fatc_c = jnp.minimum(fatc + fatal, 1.0)
-            oobf_c = jnp.minimum(oobf + oob_i, 1.0)
-
-            rwd_c = rwd
-            if not env_fuse["sparse"]:
-                d_xy = jnp.sqrt(dist_c[0] * dist_c[0] + dist_c[1] * dist_c[1])
-                pd_xy = jnp.sqrt(
-                    pdist_c[0] * pdist_c[0] + pdist_c[1] * pdist_c[1]
-                )
-                tilt = jnp.sqrt(view[3] * view[3] + view[4] * view[4])
-                rwd_c = rwd_c + (
-                    -5.0
-                    + 2.0 / (d_xy + 0.1)
-                    + 100.0 * (pd_xy - d_xy)
-                    - jnp.abs(av_c[2])
-                    - 3.0 * tilt
+                new_flv = []
+                for si in range(4):
+                    p_s = B["surf"][si]["pos"]
+                    new_flv += local_vel_at(
+                        float(p_s[0]), float(p_s[1]), float(p_s[2])
+                    )
+                new_dlv = local_vel_at(
+                    float(B["drag_pos"][0]), float(B["drag_pos"][1]),
+                    float(B["drag_pos"][2]),
                 )
 
-            # pad touchdown logic (rocket_landing_env.py:229-258)
-            rwd_c = rwd_c + 20.0 * any_pad
-            pflag_c = any_pad
-            pav_n = jnp.sqrt(
-                pav_c[0] * pav_c[0] + pav_c[1] * pav_c[1] + pav_c[2] * pav_c[2]
-            )
-            plv_n = jnp.sqrt(
-                plv_c[0] * plv_c[0] + plv_c[1] * plv_c[1] + plv_c[2] * plv_c[2]
-            )
-            tilt2 = jnp.sqrt(view[3] * view[3] + view[4] * view[4])
-            hard = jnp.minimum(
-                (pav_n > 0.35).astype(jnp.float32)
-                + (plv_n > 1.0).astype(jnp.float32),
-                1.0,
-            )
-            landed = (
-                (pav_n < 0.02).astype(jnp.float32)
-                * (plv_n < 0.02).astype(jnp.float32)
-                * (tilt2 < 0.1).astype(jnp.float32)
-            )
-            fatal_touch = any_pad * hard
-            complete = any_pad * (1.0 - hard) * landed
-            rwd_c = rwd_c + 500.0 * complete
-            term_c = jnp.minimum(term_c + fatal_touch + complete, 1.0)
-            fatc_c = jnp.minimum(fatc_c + fatal_touch, 1.0)
-            cplt_c = jnp.minimum(cplt + complete, 1.0)
+                # ---- integrate (semi-implicit Euler, register-valued full
+                # inertia — core/integrator.py::step)
+                fwx = r00 * f[0] + r01 * f[1] + r02 * f[2]
+                fwy = r10 * f[0] + r11 * f[1] + r12 * f[2]
+                fwz = r20 * f[0] + r21 * f[1] + r22 * f[2]
+                lvel = [
+                    lvel[0] + dt * (fwx * inv_mass),
+                    lvel[1] + dt * (fwy * inv_mass),
+                    lvel[2] + dt * (fwz * inv_mass - g),
+                ]
+                ob = avb  # R^T omega_w
+                ixx, iyy, izz, ixy, ixz, iyz = I6
+                Iw = [
+                    ixx * ob[0] + ixy * ob[1] + ixz * ob[2],
+                    ixy * ob[0] + iyy * ob[1] + iyz * ob[2],
+                    ixz * ob[0] + iyz * ob[1] + izz * ob[2],
+                ]
+                gy = [
+                    ob[1] * Iw[2] - ob[2] * Iw[1],
+                    ob[2] * Iw[0] - ob[0] * Iw[2],
+                    ob[0] * Iw[1] - ob[1] * Iw[0],
+                ]
+                rhs = [t[i] - gy[i] for i in range(3)]
+                dob = _sym_solve(I6, rhs)
+                ob = [ob[i] + dt * dob[i] for i in range(3)]
+                avel = [
+                    r00 * ob[0] + r01 * ob[1] + r02 * ob[2],
+                    r10 * ob[0] + r11 * ob[1] + r12 * ob[2],
+                    r20 * ob[0] + r21 * ob[1] + r22 * ob[2],
+                ]
+                pos = [pos[i] + dt * lvel[i] for i in range(3)]
+                quat = pmk.quat_integrate(quat, avel, dt)
 
-            keep = done_before
-            sel = lambda old_v, new_v: keep * old_v + (1.0 - keep) * new_v
-            (s_pos, s_quat, s_lvel, s_avel, s_view, s_flv, s_dlv, s_act,
-             s_fuel, s_bthr, s_ign, s_gbl, s_con, s_gcon, s_pcon, s_rwd,
-             s_term, s_trunc, s_fatc, s_oobf, s_cplt, s_pflag, s_av, s_lv,
-             s_dist, s_pav, s_plv, s_pdist) = snap
-            pos = [sel(o, n_) for o, n_ in zip(s_pos, pos)]
-            quat = [sel(o, n_) for o, n_ in zip(s_quat, quat)]
-            lvel = [sel(o, n_) for o, n_ in zip(s_lvel, lvel)]
-            avel = [sel(o, n_) for o, n_ in zip(s_avel, avel)]
-            view = [sel(o, n_) for o, n_ in zip(s_view, view)]
-            flv = [sel(o, n_) for o, n_ in zip(s_flv, flv)]
-            dlv = [sel(o, n_) for o, n_ in zip(s_dlv, dlv)]
-            act = [sel(o, n_) for o, n_ in zip(s_act, act)]
-            fuel = sel(s_fuel, fuel)
-            bthr = sel(s_bthr, bthr)
-            ign = sel(s_ign, ign)
-            gbl = [sel(o, n_) for o, n_ in zip(s_gbl, gbl)]
-            contact = sel(s_con, contact)
-            gcon = sel(s_gcon, gcon)
-            pcon = sel(s_pcon, pcon)
-            rwd = sel(s_rwd, rwd_c)
-            term = sel(s_term, term_c)
-            trunc = sel(s_trunc, trunc_c)
-            fatc = sel(s_fatc, fatc_c)
-            oobf = sel(s_oobf, oobf_c)
-            cplt = sel(s_cplt, cplt_c)
-            pflag = sel(s_pflag, pflag_c)
-            av = [sel(o, n_) for o, n_ in zip(s_av, av_c)]
-            lv = [sel(o, n_) for o, n_ in zip(s_lv, lv_c)]
-            dist = [sel(o, n_) for o, n_ in zip(s_dist, dist_c)]
-            pav = [sel(o, n_) for o, n_ in zip(s_pav, pav_c)]
-            plv = [sel(o, n_) for o, n_ in zip(s_plv, plv_c)]
-            pdist = [sel(o, n_) for o, n_ in zip(s_pdist, pdist_c)]
+                # ---- pad-aware impulse ground contact
+                # (core/integrator.py::ground_contact with per-point heights from
+                # models/rocket.py::_pad_ground_heights: raised 2 m disc)
+                Rn = pmk.quat_rotmat(quat)
+                n00, n01, n02, n10, n11, n12, n20, n21, n22 = Rn
+                pad_top = padp[2] + 0.05
+                depth_sum = zero
+                max_depth = zero
+                cx_acc = zero
+                cy_acc = zero
+                cz_acc = zero
+                pad_pen = zero
+                gnd_pen = zero
+                for cp in B["contact_pts"]:
+                    px = float(cp[0]) - com[0]
+                    py = float(cp[1]) - com[1]
+                    pz = float(cp[2]) - com[2]
+                    wx = n00 * px + n01 * py + n02 * pz
+                    wy = n10 * px + n11 * py + n12 * pz
+                    wz = n20 * px + n21 * py + n22 * pz
+                    gx = pos[0] + wx
+                    gy_ = pos[1] + wy
+                    gz = pos[2] + wz
+                    dxp = gx - padp[0]
+                    dyp = gy_ - padp[1]
+                    on_pad = (dxp * dxp + dyp * dyp < 4.0).astype(jnp.float32)
+                    h = on_pad * pad_top
+                    depth = h - gz
+                    pen = (depth > 0.0).astype(jnp.float32)
+                    pad_pen = jnp.maximum(pad_pen, on_pad * pen)
+                    gnd_pen = jnp.maximum(gnd_pen, (1.0 - on_pad) * pen)
+                    w = jnp.maximum(depth, 0.0)
+                    depth_sum = depth_sum + w
+                    max_depth = jnp.maximum(max_depth, depth)
+                    cx_acc = cx_acc + w * wx
+                    cy_acc = cy_acc + w * wy
+                    cz_acc = cz_acc + w * wz
+                hit = jnp.minimum(pad_pen + gnd_pen, 1.0)
+                inv_wsum = 1.0 / jnp.maximum(depth_sum, 1e-12)
+                rwx = cx_acc * inv_wsum
+                rwy = cy_acc * inv_wsum
+                rwz = cz_acc * inv_wsum
+                # world-frame inverse inertia approx: 1 / ((R*R) @ diag(I))
+                iw_inv = [
+                    1.0 / (
+                        Rn[3 * i + 0] * Rn[3 * i + 0] * ixx
+                        + Rn[3 * i + 1] * Rn[3 * i + 1] * iyy
+                        + Rn[3 * i + 2] * Rn[3 * i + 2] * izz
+                    )
+                    for i in range(3)
+                ]
+                vpx = lvel[0] + (avel[1] * rwz - avel[2] * rwy)
+                vpy = lvel[1] + (avel[2] * rwx - avel[0] * rwz)
+                vpz = lvel[2] + (avel[0] * rwy - avel[1] * rwx)
+                # normal impulse (restitution 0)
+                k_n = inv_mass + (rwy * rwy * iw_inv[0] + rwx * rwx * iw_inv[1])
+                # rxn = r x z = (rwy, -rwx, 0)
+                j_n = jnp.maximum(-vpz / k_n, 0.0)
+                j_n = j_n * hit * (vpz < 0.0).astype(jnp.float32)
+                # friction impulse (Coulomb clamp, mu = 0.5)
+                vt = jnp.sqrt(vpx * vpx + vpy * vpy)
+                inv_vt = 1.0 / jnp.maximum(vt, 1e-9)
+                tx = vpx * inv_vt
+                ty = vpy * inv_vt
+                # rxt = r x (tx, ty, 0) = (-rwz*ty, rwz*tx, rwx*ty - rwy*tx)
+                rxt0 = -rwz * ty
+                rxt1 = rwz * tx
+                rxt2 = rwx * ty - rwy * tx
+                k_t = inv_mass + (
+                    rxt0 * rxt0 * iw_inv[0]
+                    + rxt1 * rxt1 * iw_inv[1]
+                    + rxt2 * rxt2 * iw_inv[2]
+                )
+                j_t = jnp.minimum(vt / k_t, 0.5 * j_n) * hit
+                jx = -j_t * tx
+                jy = -j_t * ty
+                jz = j_n
+                dlx = jx * inv_mass
+                dly = jy * inv_mass
+                dlz = jz * inv_mass
+                # dω = (r x j) ⊙ iw_inv
+                dax = (rwy * jz - rwz * jy) * iw_inv[0]
+                day = (rwz * jx - rwx * jz) * iw_inv[1]
+                daz = (rwx * jy - rwy * jx) * iw_inv[2]
+                lvel = [
+                    lvel[0] + hit * dlx, lvel[1] + hit * dly, lvel[2] + hit * dlz,
+                ]
+                avel = [
+                    avel[0] + hit * dax, avel[1] + hit * day, avel[2] + hit * daz,
+                ]
+                pos[2] = pos[2] + hit * jnp.maximum(max_depth, 0.0)
+
+                contact = hit
+                gcon = gnd_pen
+                pcon = pad_pen
+                any_ground = jnp.maximum(any_ground, gnd_pen)
+                any_pad = jnp.maximum(any_pad, pad_pen)
+                view = new_view
+                flv = new_flv
+                dlv = new_dlv
+
+                L = locals()
+                return {n: L[n] for n in _PHYS}
+
+            L = locals()
+            P = pmk.fori(B["ratio"], physics_iter, {n: L[n] for n in _PHYS})
+            (pos, quat, lvel, avel, view, flv, dlv, act, fuel, bthr, ign, gbl,
+             contact, gcon, pcon, any_ground, any_pad) = (P[n] for n in _PHYS)
+
+            if env_fuse is not None:
+              # ---- fused task update (envs/rocket_landing.py _task_update +
+              # envs/rocket_base.py base_term_trunc) on the candidate state,
+              # then the done-freeze (rocket_base.py base_step inner)
+              # compute_state memo shift (rocket_landing_env.py:137-156)
+              pav_c, plv_c, pdist_c = av, lv, dist
+              av_c = view[0:3]
+              lv_c = view[6:9]
+              dist_c = [view[9 + i] - padp[i] for i in range(3)]
+
+              # base_term_trunc (rocket_base_env.py:277-306; no reward overwrite)
+              trunc_c = jnp.minimum(trunc + trunc_hit, 1.0)
+              below = (view[11] < 0.0).astype(jnp.float32)
+              fatal = jnp.minimum(any_ground + below, 1.0)
+              xy2 = view[9] * view[9] + view[10] * view[10]
+              oob_i = jnp.minimum(
+                  (xy2 > maxdisp2).astype(jnp.float32)
+                  + (view[11] > ceiling).astype(jnp.float32),
+                  1.0,
+              )
+              term_c = jnp.minimum(term + fatal + oob_i, 1.0)
+              fatc_c = jnp.minimum(fatc + fatal, 1.0)
+              oobf_c = jnp.minimum(oobf + oob_i, 1.0)
+
+              rwd_c = rwd
+              if not env_fuse["sparse"]:
+                  d_xy = jnp.sqrt(dist_c[0] * dist_c[0] + dist_c[1] * dist_c[1])
+                  pd_xy = jnp.sqrt(
+                      pdist_c[0] * pdist_c[0] + pdist_c[1] * pdist_c[1]
+                  )
+                  tilt = jnp.sqrt(view[3] * view[3] + view[4] * view[4])
+                  rwd_c = rwd_c + (
+                      -5.0
+                      + 2.0 / (d_xy + 0.1)
+                      + 100.0 * (pd_xy - d_xy)
+                      - jnp.abs(av_c[2])
+                      - 3.0 * tilt
+                  )
+
+              # pad touchdown logic (rocket_landing_env.py:229-258)
+              rwd_c = rwd_c + 20.0 * any_pad
+              pflag_c = any_pad
+              pav_n = jnp.sqrt(
+                  pav_c[0] * pav_c[0] + pav_c[1] * pav_c[1] + pav_c[2] * pav_c[2]
+              )
+              plv_n = jnp.sqrt(
+                  plv_c[0] * plv_c[0] + plv_c[1] * plv_c[1] + plv_c[2] * plv_c[2]
+              )
+              tilt2 = jnp.sqrt(view[3] * view[3] + view[4] * view[4])
+              hard = jnp.minimum(
+                  (pav_n > 0.35).astype(jnp.float32)
+                  + (plv_n > 1.0).astype(jnp.float32),
+                  1.0,
+              )
+              landed = (
+                  (pav_n < 0.02).astype(jnp.float32)
+                  * (plv_n < 0.02).astype(jnp.float32)
+                  * (tilt2 < 0.1).astype(jnp.float32)
+              )
+              fatal_touch = any_pad * hard
+              complete = any_pad * (1.0 - hard) * landed
+              rwd_c = rwd_c + 500.0 * complete
+              term_c = jnp.minimum(term_c + fatal_touch + complete, 1.0)
+              fatc_c = jnp.minimum(fatc_c + fatal_touch, 1.0)
+              cplt_c = jnp.minimum(cplt + complete, 1.0)
+
+              keep = done_before
+              sel = lambda old_v, new_v: keep * old_v + (1.0 - keep) * new_v
+              (s_pos, s_quat, s_lvel, s_avel, s_view, s_flv, s_dlv, s_act,
+               s_fuel, s_bthr, s_ign, s_gbl, s_con, s_gcon, s_pcon, s_rwd,
+               s_term, s_trunc, s_fatc, s_oobf, s_cplt, s_pflag, s_av, s_lv,
+               s_dist, s_pav, s_plv, s_pdist) = snap
+              pos = [sel(o, n_) for o, n_ in zip(s_pos, pos)]
+              quat = [sel(o, n_) for o, n_ in zip(s_quat, quat)]
+              lvel = [sel(o, n_) for o, n_ in zip(s_lvel, lvel)]
+              avel = [sel(o, n_) for o, n_ in zip(s_avel, avel)]
+              view = [sel(o, n_) for o, n_ in zip(s_view, view)]
+              flv = [sel(o, n_) for o, n_ in zip(s_flv, flv)]
+              dlv = [sel(o, n_) for o, n_ in zip(s_dlv, dlv)]
+              act = [sel(o, n_) for o, n_ in zip(s_act, act)]
+              fuel = sel(s_fuel, fuel)
+              bthr = sel(s_bthr, bthr)
+              ign = sel(s_ign, ign)
+              gbl = [sel(o, n_) for o, n_ in zip(s_gbl, gbl)]
+              contact = sel(s_con, contact)
+              gcon = sel(s_gcon, gcon)
+              pcon = sel(s_pcon, pcon)
+              rwd = sel(s_rwd, rwd_c)
+              term = sel(s_term, term_c)
+              trunc = sel(s_trunc, trunc_c)
+              fatc = sel(s_fatc, fatc_c)
+              oobf = sel(s_oobf, oobf_c)
+              cplt = sel(s_cplt, cplt_c)
+              pflag = sel(s_pflag, pflag_c)
+              av = [sel(o, n_) for o, n_ in zip(s_av, av_c)]
+              lv = [sel(o, n_) for o, n_ in zip(s_lv, lv_c)]
+              dist = [sel(o, n_) for o, n_ in zip(s_dist, dist_c)]
+              pav = [sel(o, n_) for o, n_ in zip(s_pav, pav_c)]
+              plv = [sel(o, n_) for o, n_ in zip(s_plv, plv_c)]
+              pdist = [sel(o, n_) for o, n_ in zip(s_pdist, pdist_c)]
+
+            L = locals()
+            return {n: L[n] for n in carried}
+
+        any_ground = any_pad = zero
+        carried = list(_PHYS) + (list(_ENV) if env_fuse is not None else [])
+        L = locals()
+        C = pmk.fori(n_aviary, aviary_step, {n: L[n] for n in carried})
+        (pos, quat, lvel, avel, view, flv, dlv, act, fuel, bthr, ign, gbl,
+         contact, gcon, pcon, any_ground, any_pad) = (C[n] for n in _PHYS)
+        (rwd, term, trunc, fatc, oobf, cplt, pflag, av, lv, dist, pav, plv,
+         pdist) = (C.get(n) for n in _ENV)
 
         # ---- pack back
         out = [None] * ROWS
@@ -824,13 +853,9 @@ def _build_kernel(
         for i in range(ROWS):  # padding rows
             if out[i] is None:
                 out[i] = zero
-        o_ref[:] = jnp.stack(out, axis=0)
+        return out
 
     return kernel
-
-
-def _grid_call(kernel, packed: Array, seed: Array, tile: int) -> Array:
-    return pmk.grid_call(kernel, packed, seed, tile)
 
 
 def packed_step(
@@ -839,13 +864,12 @@ def packed_step(
     params: rocket.RocketParams,
     cfg: rocket.RocketConfig,
     noisy: bool = True,
-    tile: int = 256,
 ) -> Array:
     """One aviary step on the packed (ROWS, 8, N/8) state (pad position read
     from rows _PADP). Row ``_RWD``/``_TERM`` of the output carry the step's
     any-ground / any-pad contact flags. ``params`` must be CONCRETE."""
     kernel = _build_kernel(params, cfg, noisy)
-    return _grid_call(kernel, packed, seed, tile)
+    return pmk.grid_call(kernel, packed, seed)
 
 
 def packed_landing_step(
@@ -859,7 +883,6 @@ def packed_landing_step(
     max_displacement: float,
     ceiling: float,
     sparse: bool = False,
-    tile: int = 256,
 ) -> Array:
     """One FULL Rocket-Landing agent step on the packed state (see
     envs/packed_rocket_landing.py)."""
@@ -870,4 +893,4 @@ def packed_landing_step(
             max_displacement=max_displacement, ceiling=ceiling, sparse=sparse,
         ),
     )
-    return _grid_call(kernel, packed, seed, tile)
+    return pmk.grid_call(kernel, packed, seed)

@@ -9,7 +9,7 @@ params pytree so one call services a whole batch of controllers.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 

@@ -1,14 +1,15 @@
 """Mesh construction + env-batch sharding helpers.
 
-Usage (single host, n chips)::
+Usage (single host, n GPUs)::
 
     mesh = env_mesh()                       # 1-D ('env',) over all devices
-    state = shard_env_batch(state, mesh)    # env axis split across chips
+    state = shard_env_batch(state, mesh)    # env axis split across devices
     params = replicate(params, mesh)
 
-Multi-host (one process per host, e.g. a TPU pod slice)::
+Multi-host (one process per host)::
 
-    init_distributed()                      # jax.distributed.initialize()
+    init_distributed(coordinator_address=..., num_processes=...,
+                     process_id=...)        # jax.distributed.initialize()
     mesh = env_mesh()                       # global mesh over all hosts
     # build per-host shards with jax.make_array_from_process_local_data or
     # reset envs under jit with out_shardings=NamedSharding(mesh, P('env'))

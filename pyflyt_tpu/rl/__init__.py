@@ -1,6 +1,6 @@
 """On-device RL training (PPO) for the functional envs.
 
-TPU-native replacement for the reference's SB3 training stack
+On-device replacement for the reference's SB3 training stack
 (/root/reference/PyFlyt/rl_training/)::
 
     from pyflyt_tpu.rl import PPO, PPOConfig, TrainConfig, train

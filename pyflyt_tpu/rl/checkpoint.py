@@ -1,10 +1,13 @@
-"""Orbax checkpointing of the full training state.
+"""Checkpointing of the full training state as one ``.npz`` file.
 
 The reference only checkpoints SB3 model zips via its eval callback
 (/root/reference/PyFlyt/rl_training/custom_eval_callback.py:88-105). Here the
 checkpoint covers params + optimizer state + env state + PRNG key
-(SURVEY.md §5: "orbax checkpoints of params+opt_state+env_state+PRNG keys"),
-so training resumes bit-exactly.
+(SURVEY.md §5), so training resumes bit-exactly. Each leaf is stored under
+its key path (``jax.tree_util.keystr``, e.g.
+``.params['params']['pi_trunk']['Dense_0']['kernel']``); the file is written
+to a temporary name and renamed into place, so a reader never sees a partial
+checkpoint.
 """
 
 from __future__ import annotations
@@ -13,38 +16,72 @@ import os
 from typing import Any
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
-
-def _checkpointer():
-    import orbax.checkpoint as ocp
-
-    return ocp.PyTreeCheckpointer()
+_PARAMS = ".params"  # key-path prefix of RunnerState.params
 
 
-def save(path: str, runner: Any) -> None:
-    """Saves a RunnerState pytree to ``path`` (overwrites)."""
-    path = os.path.abspath(path)
-    _checkpointer().save(path, runner, force=True)
+def checkpoint_file(path: str) -> str:
+    """``path`` with the ``.npz`` suffix the file carries."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _named_leaves(tree: Any, prefix: str = "") -> dict[str, Any]:
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {prefix + jax.tree_util.keystr(k): v for k, v in flat}
+
+
+def save_arrays(path: str, arrays: dict[str, Any]) -> str:
+    """Writes named arrays atomically; returns the file written."""
+    final = os.path.abspath(checkpoint_file(path))
+    os.makedirs(os.path.dirname(final), exist_ok=True)
+    tmp = final + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **{k: np.asarray(v) for k, v in arrays.items()})
+    os.replace(tmp, final)
+    return final
+
+
+def save(path: str, runner: Any) -> str:
+    """Saves a RunnerState pytree to ``path`` (+ ``.npz``; overwrites)."""
+    return save_arrays(path, _named_leaves(runner))
+
+
+def _load(path: str) -> dict[str, np.ndarray]:
+    with np.load(checkpoint_file(path)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _fill(template: Any, arrays: dict[str, np.ndarray], prefix: str) -> Any:
+    flat, treedef = jax.tree_util.tree_flatten_with_path(template)
+    leaves = []
+    for keypath, t in flat:
+        name = prefix + jax.tree_util.keystr(keypath)
+        if name not in arrays:
+            raise ValueError(
+                f"checkpoint has no leaf {name!r} — the model or state "
+                "structure differs from the one saved"
+            )
+        r = arrays[name]
+        if tuple(np.shape(t)) != tuple(r.shape):
+            raise ValueError(
+                f"shape mismatch at {name}: checkpoint {r.shape} vs model "
+                f"{np.shape(t)} — observation/action sizes must agree"
+            )
+        leaves.append(jnp.asarray(r, jnp.asarray(t).dtype))
+    return jax.tree_util.tree_unflatten(treedef, leaves)
 
 
 def restore(path: str, template: Any) -> Any:
     """Restores a RunnerState saved by :func:`save`.
 
-    ``template`` is a matching pytree (e.g. a fresh ``PPO.init`` output) used
-    to recover array dtypes/shapes and custom dataclass structure.
-
-    Compatibility note: the ``opt_state`` pytree structure depends on the
-    PPOConfig that built the template — ``fused_sgd`` keeps per-tensor Adam
-    moments while the default path wraps the chain in ``optax.flatten``
-    (introduced round 3; checkpoints written before that, or across a
-    ``fused_sgd`` flag change, have a different opt_state tree). A full
-    restore against a mismatched template raises; fall back to
-    :func:`restore_params` to recover the policy and restart the optimizer.
+    ``template`` is a matching pytree (e.g. a fresh ``PPO.init`` output)
+    that gives the structure, dtypes and shapes. A template built with a
+    different config (another env batch, network or optimizer) raises; use
+    :func:`restore_params` to recover only the policy.
     """
-    path = os.path.abspath(path)
-    restored = _checkpointer().restore(path, item=template)
-    return restored
+    return _fill(template, _load(path), "")
 
 
 def restore_params(path: str, params_template: Any) -> Any:
@@ -54,41 +91,10 @@ def restore_params(path: str, params_template: Any) -> Any:
     episode horizon / optimizer state), the counterpart of the reference's
     ``PPO.load(path=".../best_model_*.zip")`` curriculum step
     (rl_training/trajectory_following_slow/training.py:206-211). The network
-    shapes must match; everything else (env states, optimizer moments, PRNG)
-    starts fresh.
+    must match leaf for leaf; everything else (env states, optimizer
+    moments, PRNG) starts fresh.
     """
-    import jax.numpy as jnp
-    import orbax.checkpoint as ocp
-
-    path = os.path.abspath(path)
-    ckptr = _checkpointer()
-    # restore every leaf as a host numpy array: a checkpoint written from a
-    # TPU process carries device shardings that don't resolve when
-    # restoring without an item on another backend (CPU eval of a
-    # TPU-trained policy)
-    tree_meta = ckptr.metadata(path).item_metadata.tree
-    restore_args = jax.tree.map(
-        lambda _: ocp.RestoreArgs(restore_type=np.ndarray), tree_meta
-    )
-    raw = ckptr.restore(path, restore_args=restore_args)
-    raw_params = raw["params"]
-    flat_t, treedef = jax.tree_util.tree_flatten(params_template)
-    flat_r = jax.tree_util.tree_leaves(raw_params)
-    if len(flat_t) != len(flat_r):
-        raise ValueError(
-            f"checkpoint params tree ({len(flat_r)} leaves) does not match "
-            f"the model ({len(flat_t)} leaves) — warm start needs identical "
-            "network architecture"
-        )
-    for t, r in zip(flat_t, flat_r):
-        if tuple(t.shape) != tuple(r.shape):
-            raise ValueError(
-                f"warm-start shape mismatch: checkpoint {r.shape} vs model "
-                f"{t.shape} — observation/action sizes must agree"
-            )
-    return jax.tree_util.tree_unflatten(
-        treedef, [jnp.asarray(r, t.dtype) for t, r in zip(flat_t, flat_r)]
-    )
+    return _fill(params_template, _load(path), _PARAMS)
 
 
 def average_params(paths: list[str], params_template: Any) -> Any:
@@ -97,12 +103,10 @@ def average_params(paths: list[str], params_template: Any) -> Any:
     Classic checkpoint averaging: restore the ``params`` subtree of each
     checkpoint (same architecture required) and return the element-wise
     mean. Used to stabilize the trajectory_following_slow deterministic
-    eval, whose per-checkpoint scores are high-variance late in training
-    (docs/artifacts/traj_slow_curriculum_tpu.jsonl); pass several
+    eval, whose per-checkpoint scores are high-variance late in training;
+    pass several
     ``best_model_*`` checkpoints to the eval CLI to combine them.
     """
-    import jax.numpy as jnp
-
     assert paths, "average_params needs at least one checkpoint path"
     trees = [restore_params(p, params_template) for p in paths]
     return jax.tree.map(

@@ -2,7 +2,7 @@
 
 Replaces the reference's SB3 ``MlpPolicy`` + ``CustomFeatureExtractor``
 (/root/reference/PyFlyt/rl_training/custom_feature_extractor.py:14-26: a
-2×256 tanh MLP) with a flax module: shared feature extractor, separate
+2×256 tanh MLP) with plain-JAX init/apply pairs: shared feature extractor, separate
 policy/value heads (net_arch mirrors the SB3 ``pi``/``vf`` lists — the
 trajectory-following recipes use [64, 64, 32, 32],
 rl_training/trajectory_following_fast/training.py:112-122), diagonal
@@ -12,32 +12,86 @@ action spaces).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Sequence
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 from jax import Array
 
+_orthogonal = jax.nn.initializers.orthogonal
 
-class MLP(nn.Module):
+
+def _dense_init(key, din: int, dout: int, scale: float) -> dict:
+    return {
+        "kernel": _orthogonal(scale)(key, (din, dout), jnp.float32),
+        "bias": jnp.zeros((dout,), jnp.float32),
+    }
+
+
+def _dense(p: dict, x: Array, dtype) -> Array:
+    return x.astype(dtype) @ p["kernel"].astype(dtype) + p["bias"].astype(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLP:
+    """tanh MLP; params ``{"Dense_i": {"kernel", "bias"}}``."""
+
     sizes: Sequence[int]
     activate_last: bool = True
     dtype: Any = jnp.float32  # computation dtype (params stay float32)
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def init(self, key: Array, din: int) -> dict:
+        keys = jax.random.split(key, len(self.sizes))
+        params = {}
         for i, size in enumerate(self.sizes):
-            x = nn.Dense(
-                size,
-                kernel_init=nn.initializers.orthogonal(jnp.sqrt(2.0)),
-                dtype=self.dtype,
-            )(x)
+            params[f"Dense_{i}"] = _dense_init(keys[i], din, size, jnp.sqrt(2.0))
+            din = size
+        return params
+
+    def apply(self, params: dict, x: Array) -> Array:
+        for i in range(len(self.sizes)):
+            x = _dense(params[f"Dense_{i}"], x, self.dtype)
             if self.activate_last or i < len(self.sizes) - 1:
-                x = nn.tanh(x)
+                x = jnp.tanh(x)
         return x
 
 
-class ActorCritic(nn.Module):
+class _Heads:
+    """Separate pi/vf trunks over a feature vector, a linear mean head, a
+    state-independent log-std and a scalar value head (mixin: the
+    subclasses declare the fields)."""
+
+    def _trunks(self):
+        pi = MLP((*self.feature_sizes, *self.pi_sizes), dtype=self.dtype)
+        vf = MLP((*self.feature_sizes, *self.vf_sizes), dtype=self.dtype)
+        return pi, vf
+
+    def init_heads(self, key: Array, din: int) -> dict:
+        pi, vf = self._trunks()
+        k = jax.random.split(key, 4)
+        return {
+            "pi_trunk": pi.init(k[0], din),
+            "pi_head": _dense_init(k[1], pi.sizes[-1], self.action_dim, 0.01),
+            "log_std": jnp.full((self.action_dim,), self.init_log_std, jnp.float32),
+            "vf_trunk": vf.init(k[2], din),
+            "vf_head": _dense_init(k[3], vf.sizes[-1], 1, 1.0),
+        }
+
+    def apply_heads(self, p: dict, feat: Array) -> tuple[Array, Array, Array]:
+        pi, vf = self._trunks()
+        mean = _dense(p["pi_head"], pi.apply(p["pi_trunk"], feat), self.dtype)
+        log_std = p["log_std"]
+        if self.log_std_range is not None:
+            log_std = jnp.clip(log_std, *self.log_std_range)
+        value = _dense(p["vf_head"], vf.apply(p["vf_trunk"], feat), self.dtype)
+        mean = mean.astype(jnp.float32)
+        value = value.astype(jnp.float32)
+        return mean, jnp.broadcast_to(log_std, mean.shape), value[..., 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ActorCritic(_Heads):
     """Separate actor/critic tanh MLPs + diagonal Gaussian policy.
 
     Separate trunks match SB3's effective default (independent ``pi``/``vf``
@@ -45,6 +99,9 @@ class ActorCritic(nn.Module):
     (±100-scale returns in these envs) from wrecking the policy features.
     ``pi_sizes``/``vf_sizes`` append extra head layers as in SB3's
     ``net_arch`` lists.
+
+    ``init(key, obs)`` returns ``{"params": {...}}`` and ``apply(params,
+    obs)`` returns ``(action_mean, log_std, value)``.
     """
 
     action_dim: int
@@ -57,157 +114,56 @@ class ActorCritic(nn.Module):
     # inflates mid-training and destroys the policy — a hard range keeps
     # exploration inside the useful action band. None = unclamped.
     log_std_range: tuple[float, float] | None = None
-    # MXU computation dtype: bfloat16 doubles the v5e matmul rate; the
-    # parameters, gradients and Adam state stay float32 (mixed precision).
-    # Outputs are cast back to float32 so the PPO loss math is unchanged.
+    # matmul computation dtype; parameters, gradients and Adam state stay
+    # float32, and outputs are cast back to float32 for the loss
     dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, obs: Array) -> tuple[Array, Array, Array]:
-        """Returns (action_mean, log_std, value)."""
-        pi = MLP(
-            (*self.feature_sizes, *self.pi_sizes), name="pi_trunk",
-            dtype=self.dtype,
-        )(obs)
-        mean = nn.Dense(
-            self.action_dim,
-            kernel_init=nn.initializers.orthogonal(0.01),
-            name="pi_head",
-            dtype=self.dtype,
-        )(pi)
-        log_std = self.param(
-            "log_std",
-            nn.initializers.constant(self.init_log_std),
-            (self.action_dim,),
-        )
-        if self.log_std_range is not None:
-            log_std = jnp.clip(log_std, *self.log_std_range)
+    def init(self, key: Array, obs: Array) -> dict:
+        return {"params": self.init_heads(key, obs.shape[-1])}
 
-        vf = MLP(
-            (*self.feature_sizes, *self.vf_sizes), name="vf_trunk",
-            dtype=self.dtype,
-        )(obs)
-        value = nn.Dense(
-            1, kernel_init=nn.initializers.orthogonal(1.0), name="vf_head",
-            dtype=self.dtype,
-        )(vf)
-        mean = mean.astype(jnp.float32)
-        value = value.astype(jnp.float32)
-        return mean, jnp.broadcast_to(log_std, mean.shape), value[..., 0]
+    def apply(self, params: dict, obs: Array) -> tuple[Array, Array, Array]:
+        return self.apply_heads(params["params"], obs)
 
 
-class _StridedConv(nn.Module):
-    """One 3x3 stride-2 SAME conv layer with selectable lowering.
-
-    Parameter layout is identical to ``nn.Conv`` (``kernel`` (3,3,Cin,F),
-    ``bias`` (F,), lecun-normal/zeros init), so checkpoints trained with one
-    ``impl`` load under any other — the impls are exact reformulations of
-    the same math, they only change how XLA sees it:
-
-    - ``conv``   — ``nn.Conv`` (lax.conv_general_dilated). XLA:TPU lowers
-      tiny-channel NHWC convs with most of the MXU tile padded.
-    - ``im2col`` — ``lax.conv_general_dilated_patches`` + one dot_general:
-      (B·H'·W', 9·Cin) x (9·Cin, F).
-    - ``s2d``    — space-to-depth: pad H,W to the SAME-conv extent, fold
-      2x2 spatial blocks into channels (Cin -> 4·Cin), then the stride-2
-      3x3 conv becomes a VALID stride-1 2x2 conv = one dot with a
-      zero-embedded (16·Cin, F) kernel — 4x the contraction depth of
-      im2col, the classic TPU small-conv packing (cf. the public
-      cloud-TPU ResNet space-to-depth trick).
-    """
-
-    features: int
-    impl: str = "conv"
-    dtype: Any = jnp.float32
-
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        import jax.lax as lax
-
-        cin = x.shape[-1]
-        # identical names/shapes/inits to nn.Conv so the param tree stays
-        # "Conv_i": {kernel, bias} across impls (old checkpoints load)
-        kernel = self.param(
-            "kernel", nn.initializers.lecun_normal(),
-            (3, 3, cin, self.features), jnp.float32,
-        ).astype(self.dtype)
-        bias = self.param(
-            "bias", nn.initializers.zeros, (self.features,), jnp.float32
-        ).astype(self.dtype)
-        x = x.astype(self.dtype)
-        lead = x.shape[:-3]
-        h, w = x.shape[-3], x.shape[-2]
-        oh, ow = -(-h // 2), -(-w // 2)  # SAME stride-2 output extent
-        x2 = x.reshape((-1,) + x.shape[-3:])
-        if self.impl == "conv":
-            out = lax.conv_general_dilated(
-                x2, kernel, (2, 2), "SAME",
-                dimension_numbers=("NHWC", "HWIO", "NHWC"),
-            ) + bias
-            return out.reshape(*lead, oh, ow, self.features)
-        if self.impl == "im2col":
-            patches = lax.conv_general_dilated_patches(
-                x2, (3, 3), (2, 2), "SAME",
-                dimension_numbers=("NHWC", "HWIO", "NHWC"),
-            )  # (B, oh, ow, Cin*9), channel-major (c, kh, kw)
-            kmat = kernel.transpose(2, 0, 1, 3).reshape(cin * 9, self.features)
-            out = patches @ kmat + bias
-            return out.reshape(*lead, oh, ow, self.features)
-        if self.impl == "s2d":
-            # explicit SAME padding, then grow to the even extent the 2x2
-            # block fold needs: He = 2*oh + 2 (the extra zero rows are only
-            # touched through zero kernel taps)
-            pad_lo_h = max((oh - 1) * 2 + 3 - h, 0) // 2
-            pad_lo_w = max((ow - 1) * 2 + 3 - w, 0) // 2
-            he, we = 2 * oh + 2, 2 * ow + 2
-            xp = jnp.pad(
-                x2,
-                ((0, 0), (pad_lo_h, he - h - pad_lo_h),
-                 (pad_lo_w, we - w - pad_lo_w), (0, 0)),
-            )
-            b = xp.shape[0]
-            # fold 2x2 blocks into channels: (p, q, c) channel order
-            y = xp.reshape(b, he // 2, 2, we // 2, 2, cin)
-            y = y.transpose(0, 1, 3, 2, 4, 5).reshape(
-                b, he // 2, we // 2, 4 * cin
-            )
-            # 2x2 VALID window via 4 shifted views, (a, b) major order
-            rows = []
-            for a in (0, 1):
-                for bb in (0, 1):
-                    rows.append(y[:, a : a + oh, bb : bb + ow, :])
-            patches = jnp.concatenate(rows, axis=-1)  # (B, oh, ow, 16*Cin)
-            # zero-embed the 3x3 kernel into the (a,b,p,q,c) layout:
-            # K2[a,b,p,q,c,f] = K[2a+p, 2b+q, c, f] (taps di/dj==3 are 0)
-            k4 = jnp.pad(kernel, ((0, 1), (0, 1), (0, 0), (0, 0)))
-            k2 = k4.reshape(2, 2, 2, 2, cin, self.features)  # (a,p,b,q,c,f)
-            kmat = k2.transpose(0, 2, 1, 3, 4, 5).reshape(
-                16 * cin, self.features
-            )
-            out = patches @ kmat + bias
-            return out.reshape(*lead, oh, ow, self.features)
-        raise ValueError(f"unknown conv impl {self.impl!r}")
+def _conv_init(key: Array, cin: int, features: int) -> dict:
+    init = jax.nn.initializers.lecun_normal()
+    return {
+        "kernel": init(key, (3, 3, cin, features), jnp.float32),
+        "bias": jnp.zeros((features,), jnp.float32),
+    }
 
 
-class VisionActorCritic(nn.Module):
+def _strided_conv(p: dict, x: Array, dtype) -> Array:
+    """One 3x3 stride-2 SAME conv (NHWC, any leading batch dims)."""
+    kernel = p["kernel"].astype(dtype)
+    x = x.astype(dtype)
+    lead = x.shape[:-3]
+    x2 = x.reshape((-1,) + x.shape[-3:])
+    out = jax.lax.conv_general_dilated(
+        x2, kernel, (2, 2), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+    ) + p["bias"].astype(dtype)
+    return out.reshape(*lead, *out.shape[1:])
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionActorCritic(_Heads):
     """Actor-critic for image+vector dict observations (the Gates task).
 
     Consumes the FLAT observation vector PPO's ``_flat_obs`` builds from a
     dict env (keys sorted, each flattened) and re-slices the image out:
     ``[..., :image_offset)`` and ``[..., image_offset+C·H·W:)`` are vector
     features, the middle is the raw uint8-valued ``rgba_cam`` (4, H, W)
-    scaled by 1/255 in here. A shared conv encoder feeds separate pi/vf
-    dense trunks — SB3's ``MultiInputPolicy`` layout (CombinedExtractor
-    image branch + ``share_features_extractor=True`` default) that the
-    reference's vision env would use if it ran
+    scaled by 1/255 in here. A shared conv encoder (params ``Conv_i``)
+    feeds separate pi/vf dense trunks — SB3's ``MultiInputPolicy`` layout
+    (CombinedExtractor image branch + ``share_features_extractor=True``
+    default) that the reference's vision env would use if it ran
     (/root/reference/PyFlyt/gym_envs/quadx_envs/quadx_gates_env.py:64-79
     declares the dict space; the env itself crashes upstream on a bad
     asset path, :93-94).
 
     The conv stack is a reduced NatureCNN (stride-2 convs sized for
-    32-64 px FPV frames rather than 84 px Atari). All MXU-friendly: convs
-    and dense layers lower to matmuls, image scale/transpose fuse into
-    the surrounding elementwise graph.
+    32-64 px FPV frames rather than 84 px Atari).
     """
 
     action_dim: int
@@ -220,61 +176,35 @@ class VisionActorCritic(nn.Module):
     init_log_std: float = 0.0
     log_std_range: tuple[float, float] | None = None
     dtype: Any = jnp.float32
-    # conv lowering: "conv" | "im2col" | "s2d" — exact reformulations of
-    # the same math with identical param trees (see _StridedConv)
-    conv_impl: str = "conv"
 
-    @nn.compact
-    def __call__(self, obs: Array) -> tuple[Array, Array, Array]:
+    def _split(self, obs: Array) -> tuple[Array, Array]:
         c, h, w = self.image_shape
-        img_size = c * h * w
-        i0 = self.image_offset
-        vec = jnp.concatenate(
-            [obs[..., :i0], obs[..., i0 + img_size :]], axis=-1
-        )
-        img = obs[..., i0 : i0 + img_size].reshape(
-            *obs.shape[:-1], c, h, w
-        )
+        i0, n = self.image_offset, c * h * w
+        vec = jnp.concatenate([obs[..., :i0], obs[..., i0 + n :]], axis=-1)
+        img = obs[..., i0 : i0 + n].reshape(*obs.shape[:-1], c, h, w)
         # NCHW -> NHWC, rank-generically (any number of leading batch dims)
-        x = jnp.moveaxis(img.astype(self.dtype) / 255.0, -3, -1)
+        return jnp.moveaxis(img.astype(self.dtype) / 255.0, -3, -1), vec
+
+    def init(self, key: Array, obs: Array) -> dict:
+        c, h, w = self.image_shape
+        keys = jax.random.split(key, len(self.conv_features) + 1)
+        params, cin = {}, c
         for i, f in enumerate(self.conv_features):
-            x = nn.relu(
-                _StridedConv(
-                    f, impl=self.conv_impl, dtype=self.dtype,
-                    name=f"Conv_{i}",
-                )(x)
-            )
+            params[f"Conv_{i}"] = _conv_init(keys[i], cin, f)
+            cin, h, w = f, -(-h // 2), -(-w // 2)  # SAME stride-2 extent
+        c0, h0, w0 = self.image_shape
+        din = cin * h * w + obs.shape[-1] - c0 * h0 * w0
+        params.update(self.init_heads(keys[-1], din))
+        return {"params": params}
+
+    def apply(self, params: dict, obs: Array) -> tuple[Array, Array, Array]:
+        p = params["params"]
+        x, vec = self._split(obs)
+        for i in range(len(self.conv_features)):
+            x = jax.nn.relu(_strided_conv(p[f"Conv_{i}"], x, self.dtype))
         x = x.reshape(*x.shape[:-3], -1)
         feat = jnp.concatenate([x, vec.astype(self.dtype)], axis=-1)
-
-        pi = MLP(
-            (*self.feature_sizes, *self.pi_sizes), name="pi_trunk",
-            dtype=self.dtype,
-        )(feat)
-        mean = nn.Dense(
-            self.action_dim,
-            kernel_init=nn.initializers.orthogonal(0.01),
-            name="pi_head",
-            dtype=self.dtype,
-        )(pi)
-        log_std = self.param(
-            "log_std",
-            nn.initializers.constant(self.init_log_std),
-            (self.action_dim,),
-        )
-        if self.log_std_range is not None:
-            log_std = jnp.clip(log_std, *self.log_std_range)
-        vf = MLP(
-            (*self.feature_sizes, *self.vf_sizes), name="vf_trunk",
-            dtype=self.dtype,
-        )(feat)
-        value = nn.Dense(
-            1, kernel_init=nn.initializers.orthogonal(1.0), name="vf_head",
-            dtype=self.dtype,
-        )(vf)
-        mean = mean.astype(jnp.float32)
-        value = value.astype(jnp.float32)
-        return mean, jnp.broadcast_to(log_std, mean.shape), value[..., 0]
+        return self.apply_heads(p, feat)
 
 
 def gaussian_log_prob(mean: Array, log_std: Array, action: Array) -> Array:

@@ -23,7 +23,7 @@ from typing import Any, Callable
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from pyflyt_tpu.core import struct
 from jax import Array
 
 from pyflyt_tpu.envs.base import FunctionalEnv, autoreset_step
@@ -61,74 +61,9 @@ class PPOConfig:
     # for envs with reset-time stabilization; 0 disables (exact per-step
     # resets). Value = the cache refresh PERIOD in steps.
     cached_reset_refresh: int = 0
-    # network computation dtype ("float32" | "bfloat16"): bfloat16 runs the
-    # policy/value matmuls at the v5e MXU's double rate; params/grads/Adam
-    # stay float32 and the loss math is float32 (networks.ActorCritic.dtype)
+    # network matmul dtype ("float32" | "bfloat16"); params/grads/Adam stay
+    # float32 and the loss math is float32 (networks.ActorCritic.dtype)
     compute_dtype: str = "float32"
-    # run the whole SGD epoch (64 minibatches x fwd+bwd+clip+Adam) as ONE
-    # Mosaic kernel (ops/pallas_sgd.py): params and Adam moments stay
-    # VMEM-resident across the epoch, the minibatch stream double-buffers
-    # behind compute, and the optimizer runs in-register. Same math as the
-    # XLA path at bf16-matmul-truncation level (the XLA path's f32 matmuls
-    # already run as bf16 MXU passes under JAX's default TPU precision).
-    # Opt-in fast path; the exact-XLA scan stays the default. Under an
-    # ('env',) mesh (PPO(..., mesh=...)/train(use_mesh=True)) each device
-    # runs the epoch kernel on its LOCAL rows of every minibatch and
-    # params/Adam moments are pmean'd across devices after each epoch —
-    # exact on a 1-device mesh; on >1 devices this is local-Adam with
-    # epoch-level averaging (grad-norm clip and Adam run on local
-    # gradients), a documented deviation from the global-minibatch XLA
-    # path. Advantage normalization uses GLOBAL minibatch stats either way.
-    # Curve-level evidence that the deviated optimizer trains equivalently
-    # (2-device CPU mesh, 3 seeds x 600 updates of QuadX-Hover to plateau:
-    # arm reward ranges overlap — xla 2.52-2.58 vs fused 2.43-2.56, arm
-    # gap 0.06): docs/artifacts/fused_sgd_mesh_curves_cpu.jsonl;
-    # PPO.__init__ also warns at construction on a >1-device mesh.
-    # ROUND-4 TRAINING-HEALTH NOTE (probes r4f C2 / r4n / r4o / r4q): a
-    # first failed fused 3B run looked like a Mosaic-lowering bias, but
-    # controlled measurement dissolved that: Mosaic tanh/exp are
-    # bit-identical to XLA on v5e, the kernel's forward logp matches the
-    # rollout's stored logp to 4e-8 mean-abs, and a 200-update ghost A/B
-    # shows only zero-mean ~0.5-1%-of-update-norm divergence (bf16
-    # backward-matmul rounding) with no cumulative log_std drift
-    # (ppo_20m_r4n_tpu.jsonl). The failure signature (entropy climbing
-    # through 0 while reward plateaus at ~-88) reproduces in the PURE XLA
-    # path: fresh-seed base rate at the 8192-env 3ep recipe is 3/5 XLA vs
-    # 1/6 fused (r4q; Fisher p~0.24, not significant) — the mode-9
-    # breakout at that recipe is a coin flip for both paths. The 32K-env
-    # solve recipe (r4m) is the robust one. fused_sgd remains opt-in
-    # because the XLA epoch is the exact-semantics reference, not because
-    # a kernel pathology was established.
-    fused_sgd: bool = False
-    # rows per kernel grid step (VMEM budget knob; must divide the
-    # minibatch size after clipping)
-    fused_sgd_chunk: int = 1024
-    # Rewrite the packed buffer's old_log_prob column with the epoch
-    # kernel's OWN forward arithmetic before the epoch scan (one
-    # forward-only pallas pass over the batch, ops/pallas_sgd.py
-    # build_logp_forward). This is the round-4 fix for the training-health
-    # caution above: the XLA path recomputes old_logp's forward with the
-    # same arithmetic it trains with (epoch-1 ratios == 1 bit-exactly),
-    # while the fused kernel trained against the rollout's XLA-forward
-    # logp — on real Mosaic lowering the two forwards differ by a
-    # state-correlated delta and every ratio carried exp(delta) rounding
-    # noise rivaling the genuine per-minibatch KL. Costs ~1 batch forward
-    # (~5% of a 3-epoch SGD phase). Only consulted when fused_sgd=True.
-    fused_sgd_consistent_logp: bool = True
-    # Run the rollout's policy/value forward as ONE Mosaic kernel
-    # (ops/pallas_policy.py): MLP weights and trunk activations stay
-    # VMEM-resident, cutting the forward's HBM traffic from ~4.3 KB to
-    # ~88 B per env-step — the rollout phase is activation-bandwidth-bound
-    # at large batches (docs/PERF.md round-4 section). Same bf16-matmul/
-    # f32-accumulate arithmetic as the XLA forward (measured bit-identical
-    # on v5e, ppo_20m_r4n_tpu.jsonl stage B0). Opt-in; the exact
-    # network.apply path stays the default.
-    fused_rollout_forward: bool = False
-    # rows per grid step of the fused rollout forward (MXU-efficiency /
-    # VMEM knob; probe r4r measured the 2048-chunk kernel LOSING to XLA's
-    # big-M matmul scheduling at 32K envs — bigger chunks amortize the
-    # per-chunk serial matmul+tanh chain)
-    fused_rollout_chunk: int = 2048
     # Time-limit bootstrap strategy. The rollout scan needs V(terminal_obs)
     # only at truncated-not-terminated steps, and an env whose episode
     # length exceeds rollout_steps truncates AT MOST ONCE per rollout — so
@@ -143,22 +78,13 @@ class PPOConfig:
     # slot when ``env.max_steps > rollout_steps`` is statically known.
     slot_bootstrap: bool | None = None
     # minibatch-shuffle granularity: the per-epoch uniform permutation runs
-    # over BLOCKS of this many consecutive samples instead of single rows.
-    # TPU row-gathers pay a fixed per-row cost, so block-16 cuts the epoch
-    # shuffle from ~5.7 ms to ~0.2 ms (measured v5e, 262K-sample batch) —
-    # the whole SGD phase drops to its no-shuffle floor. Samples inside a
-    # block share a rollout timestep (adjacent envs), a negligible
-    # correlation at >=1024-sample minibatches; 1 recovers the exact
-    # SB3-style per-sample permutation. Learning-curve equivalence vs
-    # block=1 is recorded in docs/artifacts/shuffle_block_curves_tpu.jsonl.
-    # NOTE: the 16 default (round 2) means minibatch sampling is block-
-    # correlated, not the exact per-sample permutation — reproducibility-
-    # sensitive users should set shuffle_block=1 and shuffle_block_auto=False.
+    # over BLOCKS of this many consecutive samples instead of single rows,
+    # so the epoch gather moves contiguous rows. Samples inside a block
+    # share a rollout timestep (adjacent envs), a negligible correlation at
+    # >=1024-sample minibatches; 1 recovers the exact SB3-style per-sample
+    # permutation (set shuffle_block=1 and shuffle_block_auto=False).
     shuffle_block: int = 16
-    # auto-raise the block so the whole-batch epoch gather keeps >=1KB
-    # contiguous rows (measured v5e cliff: 64-byte-row gathers run at
-    # ~8 GB/s, 8x-bigger blocks at memory bandwidth — see
-    # docs/artifacts/ppo_phase_profile_tpu.jsonl). The effective block is
+    # auto-raise the block with the batch: the effective block is
     # max(shuffle_block, batch_size // 8192) clipped to a divisor of the
     # minibatch, so the correlated fraction per minibatch stays at
     # num_minibatches/8192 (<1% for <=80 minibatches) at every batch size.
@@ -205,13 +131,11 @@ def _shuffle_gather(
     """Block-permutes the packed (batch, feat) buffer into
     (num_minibatches, minibatch_size, feat) minibatches.
 
-    When a block is a whole number of 128-float vector registers, the
-    gather runs on a (num_blocks, blk·feat/128, 128) VIEW of the same
-    bytes: the packed buffer's natural minor dim is ``feat`` (typically
-    ~23 floats = 18% of a vreg lane set), and gathering at that shape
-    wastes ~5× of the HBM stream (measured 38-46 GB/s at a 65536-env
-    batch, docs/artifacts/ppo_20m_r4j_tpu.jsonl). The row-major reshapes
-    are bit-exact views, so both branches produce identical minibatches.
+    When a block is a whole number of 128-float rows, the gather runs on a
+    (num_blocks, blk·feat/128, 128) VIEW of the same bytes instead of the
+    narrow natural minor dim ``feat`` (typically ~23 floats). The
+    row-major reshapes are bit-exact views, so both branches produce
+    identical minibatches.
     """
     rows = blk * feat
     if rows % 128 == 0:
@@ -239,39 +163,17 @@ class PPO:
         config: PPOConfig = PPOConfig(),
         action_low: Array | None = None,
         action_high: Array | None = None,
-        mesh=None,
         network=None,
     ):
         self.env = env
         self.config = config
-        # ('env',) device mesh for multi-chip training (rl/train.py sets it
-        # with use_mesh). Only consulted by the fused-SGD path; the XLA
-        # epoch is mesh-agnostic (jit inserts its collectives).
-        self.mesh = mesh
-        if mesh is not None and config.fused_sgd and mesh.size > 1:
-            import warnings
-
-            # local-Adam + epoch-level pmean deviates from the
-            # global-minibatch XLA optimizer (see the PPOConfig.fused_sgd
-            # note); surfaced at runtime so multi-chip users don't
-            # attribute curve differences to the kernel. Curve-level
-            # 2-device equivalence evidence:
-            # docs/artifacts/fused_sgd_mesh_curves_cpu.jsonl.
-            warnings.warn(
-                f"fused_sgd on a {mesh.size}-device mesh runs local-Adam "
-                "with epoch-level parameter averaging — a documented "
-                "deviation from the single-device/global-minibatch "
-                "optimizer. See PPOConfig.fused_sgd.",
-                stacklevel=2,
-            )
         low, high = env.action_bounds()
         self.action_low = jnp.asarray(low if action_low is None else action_low)
         self.action_high = jnp.asarray(high if action_high is None else action_high)
         self.action_dim = int(self.action_low.shape[-1])
-        # custom policy module (e.g. networks.VisionActorCritic for the
-        # image-observation Gates task); must keep ActorCritic's
-        # (mean, log_std, value) apply contract. The fused MLP kernels
-        # assume the stock parameter tree — guard below.
+        # custom policy (e.g. networks.VisionActorCritic for the
+        # image-observation Gates task); must keep ActorCritic's init/apply
+        # contract, apply returning (mean, log_std, value)
         self.network = network or ActorCritic(
             action_dim=self.action_dim,
             feature_sizes=config.feature_sizes,
@@ -281,24 +183,15 @@ class PPO:
             log_std_range=config.log_std_range,
             dtype=jnp.dtype(config.compute_dtype),
         )
-        if network is not None:
-            assert not (config.fused_sgd or config.fused_rollout_forward), (
-                "fused_sgd / fused_rollout_forward hand-implement the stock "
-                "ActorCritic MLP; use the XLA paths with a custom network"
-            )
         # optax.flatten: run clip+Adam on ONE concatenated vector instead of
-        # ~12 per-tensor elementwise chains. Mathematically identical
-        # (both transforms are elementwise / whole-tree norms), but on TPU
-        # each tiny per-tensor op costs ~launch latency inside the 640-step
-        # sequential minibatch scan — the optimizer was a large share of the
-        # non-matmul SGD floor (docs/artifacts/ppo_phase_profile_tpu.jsonl).
-        # The fused-SGD kernel manages Adam itself and needs param-shaped
-        # moments, so it keeps the unflattened state.
+        # ~12 per-tensor elementwise chains inside the sequential minibatch
+        # scan. Mathematically identical (both transforms are elementwise /
+        # whole-tree norms).
         base_opt = optax.chain(
             optax.clip_by_global_norm(config.max_grad_norm),
             optax.adam(config.learning_rate, eps=1e-5),
         )
-        self.optimizer = base_opt if config.fused_sgd else optax.flatten(base_opt)
+        self.optimizer = optax.flatten(base_opt)
 
     # ------------------------------------------------------------------ init
     def init(self, key: Array) -> RunnerState:
@@ -336,35 +229,10 @@ class PPO:
         )
 
     # ------------------------------------------------------------- policies
-    def _apply_policy(self, params: Any, obs: Array):
-        """network.apply, or the fused Mosaic forward when
-        PPOConfig.fused_rollout_forward is set (same (mean, log_std,
-        value) contract; log_std read/clipped from the params tree)."""
-        if not self.config.fused_rollout_forward:
-            return self.network.apply(params, obs)
-        from pyflyt_tpu.ops import pallas_policy, pallas_sgd
-
-        if getattr(self, "_pvf_run", None) is None:
-            self._pvf_run = pallas_policy.build_policy_value_forward(
-                obs_dim=int(obs.shape[-1]),
-                act_dim=self.action_dim,
-                pi_sizes=tuple(self.config.feature_sizes)
-                + tuple(self.config.pi_sizes),
-                vf_sizes=tuple(self.config.feature_sizes)
-                + tuple(self.config.vf_sizes),
-                chunk=self.config.fused_rollout_chunk,
-            )
-        leaves = pallas_sgd.params_to_leaves(params)
-        mean, value = self._pvf_run(obs, leaves)
-        log_std = params["params"]["log_std"]
-        if self.config.log_std_range is not None:
-            log_std = jnp.clip(log_std, *self.config.log_std_range)
-        return mean, jnp.broadcast_to(log_std, mean.shape), value
-
     def act(self, params: Any, obs: Array, key: Array) -> tuple[Array, Array, Array]:
         """Sample (action, log_prob, value); actions clipped to bounds at the
         env boundary (SB3 semantics: log-prob of the unclipped sample)."""
-        mean, log_std, value = self._apply_policy(params, obs)
+        mean, log_std, value = self.network.apply(params, obs)
         noise = jax.random.normal(key, mean.shape, mean.dtype)
         action = mean + jnp.exp(log_std) * noise
         log_prob = gaussian_log_prob(mean, log_std, action)
@@ -435,10 +303,7 @@ class PPO:
             # using the pre-reset observation the autoreset paths surface.
             # Slot path (PPOConfig.slot_bootstrap): stash the one possible
             # truncation row per env and defer the vf apply past the scan.
-            # In-scan path: apply vf(term_obs) every step. (Round 4 also
-            # tried densely stacking (T, B, obs) terminal observations
-            # through the scan ys — it cost MORE than it saved: 25.2 ->
-            # 34.9 ms at 8192 envs, ppo_20m_r4b_tpu.jsonl stage A1.)
+            # In-scan path: apply vf(term_obs) every step.
             reward = out.reward
             term_obs = out.info.get("terminal_observation")
             if term_obs is not None:
@@ -561,10 +426,7 @@ class PPO:
 
         # flatten (T, B, ...) -> (T*B, ...) and PACK the five SGD-phase
         # tensors into ONE (batch, F) buffer: the epoch shuffle then moves a
-        # single contiguous-row array instead of a tree whose scalar members
-        # gather 64-byte rows (measured v5e: the tree gather was 16.9 of the
-        # 24 ms epoch at a 1M-sample batch — docs/artifacts/
-        # ppo_phase_profile_tpu.jsonl).
+        # single contiguous-row array instead of a tree of narrow members.
         flat = jax.tree.map(
             lambda x: x.reshape((cfg.batch_size,) + x.shape[2:]), traj
         )
@@ -583,13 +445,9 @@ class PPO:
         feat = obs_dim + act_dim + 3
 
         # effective block size: largest divisor of the minibatch size not
-        # exceeding the target (small educational configs degrade gracefully
-        # toward the exact per-sample permutation). gcd would under-shoot
-        # when the two share few factors (16 vs 24 -> 8, not 12) and
-        # silently lose most of the block-gather win. With shuffle_block_auto
-        # the target also grows with the batch so the gather stays on the
-        # fast side of the TPU's small-block cliff (>=16K blocks of <=128
-        # bytes run at ~8 GB/s; /8 as many blocks run at memory bandwidth).
+        # exceeding the target (small configs degrade gracefully toward the
+        # exact per-sample permutation). gcd would under-shoot when the two
+        # share few factors (16 vs 24 -> 8, not 12).
         if int(cfg.shuffle_block) < 1:
             raise ValueError(
                 f"shuffle_block must be >= 1, got {cfg.shuffle_block} "
@@ -603,77 +461,6 @@ class PPO:
         )
         num_blocks = cfg.batch_size // blk
 
-        fused_run = None
-        if cfg.fused_sgd:
-            from pyflyt_tpu.ops import pallas_sgd
-
-            # under a mesh each device's kernel sees its LOCAL rows of every
-            # minibatch (shard_map below) — build for the local row count
-            n_dev = self.mesh.size if self.mesh is not None else 1
-            assert cfg.minibatch_size % n_dev == 0, (
-                f"fused_sgd: minibatch size {cfg.minibatch_size} must divide "
-                f"over the {n_dev}-device mesh"
-            )
-            local_mb = cfg.minibatch_size // n_dev
-            fused_run = pallas_sgd.build_fused_epoch(
-                obs_dim=obs_dim,
-                act_dim=act_dim,
-                pi_sizes=tuple(cfg.feature_sizes) + tuple(cfg.pi_sizes),
-                vf_sizes=tuple(cfg.feature_sizes) + tuple(cfg.vf_sizes),
-                log_std_range=cfg.log_std_range,
-                num_minibatches=cfg.num_minibatches,
-                minibatch_size=local_mb,
-                feat=feat,
-                learning_rate=cfg.learning_rate,
-                clip_eps=cfg.clip_eps,
-                entropy_coef=cfg.entropy_coef,
-                value_coef=cfg.value_coef,
-                max_grad_norm=cfg.max_grad_norm,
-                chunk=min(cfg.fused_sgd_chunk, local_mb),
-            )
-            if cfg.fused_sgd_consistent_logp:
-                # self-consistent ratio channel: old_logp from the SAME
-                # kernel arithmetic the epochs train with (see the
-                # PPOConfig field's docstring)
-                pi_sz = tuple(cfg.feature_sizes) + tuple(cfg.pi_sizes)
-                logp_fwd = pallas_sgd.build_logp_forward(
-                    obs_dim=obs_dim,
-                    act_dim=act_dim,
-                    pi_sizes=pi_sz,
-                    log_std_range=cfg.log_std_range,
-                    feat=feat,
-                    chunk=8192,  # forward-only: big chunks, few launches
-                )
-                pi_leaves = tuple(
-                    pallas_sgd.params_to_leaves(runner.params)[
-                        : 2 * len(pi_sz) + 3
-                    ]
-                )
-                if self.mesh is not None:
-                    from jax.experimental.shard_map import shard_map
-                    from jax.sharding import PartitionSpec as P
-
-                    try:
-                        lp_smap = shard_map(
-                            logp_fwd,
-                            mesh=self.mesh,
-                            in_specs=(P("env"), P()),
-                            out_specs=P("env"),
-                            check_vma=False,
-                        )
-                    except TypeError:  # older JAX: the flag was check_rep
-                        lp_smap = shard_map(
-                            logp_fwd,
-                            mesh=self.mesh,
-                            in_specs=(P("env"), P()),
-                            out_specs=P("env"),
-                            check_rep=False,
-                        )
-                    new_lp = lp_smap(packed, pi_leaves)
-                else:
-                    new_lp = logp_fwd(packed, pi_leaves)
-                packed = packed.at[:, obs_dim + act_dim].set(new_lp)
-
         def epoch(carry, _):
             params, opt_state, key = carry
             key, perm_key = jax.random.split(key)
@@ -686,74 +473,6 @@ class PPO:
                 packed, perm, num_blocks, blk, feat,
                 cfg.num_minibatches, cfg.minibatch_size,
             )
-
-            if fused_run is not None:
-                adv_col = mbs[:, :, obs_dim + act_dim + 1]
-                adv_stats = jnp.stack(
-                    [adv_col.mean(axis=1), adv_col.std(axis=1)], axis=1
-                )
-                # chain(clip, adam) state: (EmptyState, (ScaleByAdamState,
-                # EmptyState)) — adam = chain(scale_by_adam, scale(-lr))
-                adam_state = opt_state[1][0]
-                leaves = pallas_sgd.params_to_leaves(params)
-                mu = pallas_sgd.params_to_leaves(adam_state.mu)
-                nu = pallas_sgd.params_to_leaves(adam_state.nu)
-                t0 = adam_state.count.reshape((1,)).astype(jnp.int32)
-                if self.mesh is not None:
-                    # per-device epoch kernel on local minibatch rows; the
-                    # epoch's resulting params/moments are averaged across
-                    # the mesh (see PPOConfig.fused_sgd semantics note)
-                    from jax.experimental.shard_map import shard_map
-                    from jax.sharding import PartitionSpec as P
-
-                    def device_epoch(mbs_l, adv_l, t0_l, lv_l, mu_l, nu_l):
-                        nl, nm, nn, mm = fused_run(
-                            mbs_l, adv_l, t0_l, lv_l, mu_l, nu_l
-                        )
-                        pmean = lambda t: jax.tree.map(  # noqa: E731
-                            lambda x: jax.lax.pmean(x, "env"), t
-                        )
-                        return pmean(nl), pmean(nm), pmean(nn), pmean(mm)
-
-                    try:
-                        smap = shard_map(
-                            device_epoch,
-                            mesh=self.mesh,
-                            in_specs=(
-                                P(None, "env"), P(), P(), P(), P(), P(),
-                            ),
-                            out_specs=(P(), P(), P(), P()),
-                            check_vma=False,  # pallas_call can't declare vma
-                        )
-                    except TypeError:  # older JAX: the flag was check_rep
-                        smap = shard_map(
-                            device_epoch,
-                            mesh=self.mesh,
-                            in_specs=(
-                                P(None, "env"), P(), P(), P(), P(), P(),
-                            ),
-                            out_specs=(P(), P(), P(), P()),
-                            check_rep=False,
-                        )
-                    new_leaves, new_mu, new_nu, m = smap(
-                        mbs, adv_stats, t0, leaves, mu, nu
-                    )
-                else:
-                    new_leaves, new_mu, new_nu, m = fused_run(
-                        mbs, adv_stats, t0, leaves, mu, nu
-                    )
-                params = pallas_sgd.leaves_to_params(new_leaves, params)
-                new_adam = adam_state._replace(
-                    count=adam_state.count + cfg.num_minibatches,
-                    mu=pallas_sgd.leaves_to_params(new_mu, adam_state.mu),
-                    nu=pallas_sgd.leaves_to_params(new_nu, adam_state.nu),
-                )
-                opt_state = (opt_state[0], (new_adam, opt_state[1][1]))
-                metrics = {
-                    name: m[:, i]
-                    for i, name in enumerate(pallas_sgd.METRICS)
-                }
-                return (params, opt_state, key), metrics
 
             def minibatch(carry, mb):
                 params, opt_state = carry

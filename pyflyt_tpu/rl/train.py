@@ -2,9 +2,9 @@
 
 The reference's training entry point (rl_training/hovering/training.py) wires
 SubprocVecEnv + SB3 PPO + eval callback + CSV/tensorboard logging. This is
-its TPU-native equivalent: one jitted train iteration per loop tick, metrics
-to JSONL/CSV, periodic deterministic eval, best-model + periodic orbax
-checkpoints, multi-chip via a ('env',) mesh.
+its on-device equivalent: one jitted train iteration per loop tick, metrics
+to JSONL/CSV, periodic deterministic eval, best-model + periodic ``.npz``
+checkpoints, multi-device data parallelism via a 1-D ('env',) mesh.
 """
 
 from __future__ import annotations
@@ -43,8 +43,7 @@ class TrainConfig:
     # update ema = d*ema + (1-d)*params; at eval time BOTH parameter sets are
     # evaluated (`eval_*` vs `eval_ema_*` metric keys) and each keeps its own
     # best-model checkpoint (`best_model_*` / `best_model_ema_*`). Smooths the
-    # late-training eval instability seen on trajectory_following_slow
-    # (docs/artifacts/traj_slow_curriculum_tpu.jsonl).
+    # late-training eval instability seen on trajectory_following_slow.
     param_ema: float = 0.0
     # Stop when the best eval reward (over raw and EMA params) has not
     # improved for this many consecutive evals (0 = never stop early).
@@ -64,24 +63,16 @@ def train(
             params=checkpoint.restore_params(tcfg.init_from, runner.params)
         )
 
-    mesh = None
     if tcfg.use_mesh:
-        from jax.sharding import Mesh
+        from pyflyt_tpu.parallel import env_mesh
 
         assert not getattr(ppo.env, "native_batch", False), (
             "native-batch (packed folded-layout) envs are single-chip: their "
             "(rows, 8, N/8) state does not shard over an ('env',) mesh — use "
             "the XLA env with use_mesh, or drop use_mesh"
         )
-        assert not ppo.config.fused_rollout_forward, (
-            "fused_rollout_forward is single-chip (the pallas forward "
-            "doesn't partition under jit) — use the XLA forward with "
-            "use_mesh, or drop use_mesh"
-        )
-        devices = np.array(jax.devices())
-        mesh = Mesh(devices, ("env",))
-        assert ppo.config.num_envs % len(devices) == 0
-        ppo.mesh = mesh  # fused_sgd consults it (per-device epoch kernel)
+        mesh = env_mesh()
+        assert ppo.config.num_envs % mesh.size == 0
         runner = ppo.shard_runner(runner, mesh)
 
     train_it = jax.jit(ppo.train_iteration, donate_argnums=(0,))

@@ -43,21 +43,18 @@ def build_env(args):
 def add_env_args(p: argparse.ArgumentParser):
     p.add_argument("--sparse_reward", type=lambda v: v != "False",
                    default=False)
-    # the fused kernel's booster-noise PRNG is Mosaic-only: keep True on
-    # TPU (reference default), pass False for CPU/interpret runs
+    # motor noise (the reference default)
     p.add_argument("--noisy_motors", type=lambda v: v != "False",
                    default=True)
     p.add_argument("--damage_per_hit", type=float, default=0.02)
     p.add_argument("--max_duration_seconds", type=float, default=60.0)
     p.add_argument("--agent_hz", type=int, default=30)
     # 0 = exact per-step arena resets (repo convention: exact semantics by
-    # default). The validated fast path is 64 — the amortized arena-spawn
-    # pool is 3.0x faster (6.01M vs 2.0M agent-steps/s @ 8192 rows) and
-    # reached the 256/256 duel result (dogfight_selfplay_r4b_tpu.jsonl);
-    # pass --cached_reset_refresh 64 for training runs.
+    # default). 64 amortizes the arena-spawn work over a reset pool and is
+    # the value training runs used; pass --cached_reset_refresh 64.
     p.add_argument("--cached_reset_refresh", type=int, default=0,
                    help="reset-pool refresh period; 0 = exact per-step "
-                        "resets (default), 64 = validated 3x fast path")
+                        "resets (default), 64 = the training value")
     p.add_argument("--layer_size", type=int, default=256)
     p.add_argument("--num_of_layers", type=int, default=2)
     p.add_argument("--init_log_std", type=float, default=-1.0)

@@ -116,13 +116,12 @@ def main(argv=None):
     add_env_args(t)
     t.add_argument("--num_envs", type=int, default=256)
     t.add_argument("--rollout_steps", type=int, default=128)
-    # 0 = exact per-step resets (repo convention). The gates rollout is
-    # dominated by the per-step reset recompute (10-step stabilization +
-    # render) when 0 — see docs/artifacts/gates_vision_r5b_tpu.jsonl for
-    # the measured fast value (--cached_reset_refresh 64).
+    # 0 = exact per-step resets (repo convention). With 0 the gates rollout
+    # recomputes the reset (10-step stabilization + render) every step;
+    # training runs use --cached_reset_refresh 64.
     t.add_argument("--cached_reset_refresh", type=int, default=0,
                    help="reset-pool refresh period; 0 = exact per-step "
-                        "resets (default), 64 = measured fast path")
+                        "resets (default), 64 = the training value")
     t.add_argument("--n_epochs", type=int, default=4)
     t.add_argument("--num_minibatches", type=int, default=8)
     t.add_argument("--learning_rate", type=float, default=3e-4)

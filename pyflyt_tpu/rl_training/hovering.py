@@ -1,6 +1,6 @@
 """Hovering PPO training / evaluation pipeline (CLI).
 
-TPU-native equivalent of /root/reference/PyFlyt/rl_training/hovering/
+Batched-JAX equivalent of /root/reference/PyFlyt/rl_training/hovering/
 {training.py,evaluation.py,evaluation_pid_expert.py}: same env
 hyperparameters and CLI shape, but the SubprocVecEnv process pool becomes a
 vmapped on-device env batch and SB3 PPO becomes pyflyt_tpu.rl.PPO (one jitted

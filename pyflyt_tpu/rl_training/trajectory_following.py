@@ -1,6 +1,6 @@
 """Trajectory-following PPO training / evaluation pipeline (CLI).
 
-TPU-native equivalent of /root/reference/PyFlyt/rl_training/
+Batched-JAX equivalent of /root/reference/PyFlyt/rl_training/
 trajectory_following_{fast,slow}/{training.py,evaluation.py}: same env
 defaults and the reference's ``net_arch pi/vf=[64, 64, 32, 32]`` policy heads
 (trajectory_following_fast/training.py:112-122).

@@ -49,8 +49,9 @@ class RTFMeter:
     def rtf(self) -> float:
         """Simulated seconds per wall second (aggregate over the batch).
 
-        The reference displays per-sim RTF≈1 when rendering; a TPU batch
-        runs at RTF in the hundreds of thousands.
+        The reference displays per-sim RTF≈1 when rendering; a batch on
+        the device runs many instances at once, so this aggregate is far
+        above 1.
         """
         sim_seconds = self._env_steps / self.agent_hz
         return sim_seconds / max(self.elapsed, 1e-9)

@@ -246,7 +246,8 @@ def test_vision_ppo_trains_on_gates():
 
 
 def test_vision_net_fused_paths_guarded():
-    """Custom networks must refuse the MLP-specific fused fast paths."""
+    """A custom network is used as given (there is no MLP-only fused path
+    left to guard against), and PPOConfig has no fused-kernel options."""
     import pytest
 
     from pyflyt_tpu.rl.networks import VisionActorCritic
@@ -256,8 +257,9 @@ def test_vision_net_fused_paths_guarded():
     net = VisionActorCritic(
         action_dim=4, image_offset=env.combined_size, image_shape=(4, 16, 16)
     )
-    with pytest.raises(AssertionError):
-        PPO(env, PPOConfig(fused_sgd=True), network=net)
+    assert PPO(env, PPOConfig(), network=net).network is net
+    with pytest.raises(TypeError):
+        PPOConfig(fused_sgd=True)
 
 
 def test_cached_reset_dict_obs_donation_safe():
@@ -284,52 +286,62 @@ def test_cached_reset_dict_obs_donation_safe():
     assert np.isfinite(float(m["loss"]))
 
 
+def _im2col_conv(p, x):
+    """Reference stride-2 SAME 3x3 conv as patches @ kernel matrix."""
+    cin, f = p["kernel"].shape[2], p["kernel"].shape[3]
+    patches = jax.lax.conv_general_dilated_patches(
+        x, (3, 3), (2, 2), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST,
+    )  # (B, oh, ow, Cin*9), channel-major (c, kh, kw)
+    kmat = p["kernel"].transpose(2, 0, 1, 3).reshape(cin * 9, f)
+    return jnp.matmul(patches, kmat, precision="highest") + p["bias"]
+
+
 def test_vision_conv_impls_exact_parity():
-    """The three conv lowerings (conv / im2col / s2d) are exact
-    reformulations of the same math with identical param trees — same
-    params give bit-comparable outputs at f32 (rl/networks._StridedConv);
-    archived nn.Conv-era checkpoints load under any impl."""
+    """The vision net's conv encoder equals the same math written as
+    im2col matmuls, with the Conv_i/{kernel,bias} tree archived
+    checkpoints carry (rl/networks._strided_conv)."""
     from pyflyt_tpu.rl.networks import VisionActorCritic
 
-    kw = dict(action_dim=4, image_offset=10, image_shape=(4, 16, 16),
-              conv_features=(8, 16), feature_sizes=(16,))
+    net = VisionActorCritic(
+        action_dim=4, image_offset=10, image_shape=(4, 16, 16),
+        conv_features=(8, 16), feature_sizes=(16,),
+    )
     obs = jax.random.uniform(
         jax.random.PRNGKey(0), (5, 10 + 4 * 16 * 16 + 6),
         minval=0.0, maxval=255.0,
     )
-    nets = {impl: VisionActorCritic(conv_impl=impl, **kw)
-            for impl in ("conv", "im2col", "s2d")}
-    params = nets["conv"].init(jax.random.PRNGKey(1), obs)
-    # the r4-era tree shape: Conv_i/{kernel,bias}
-    assert "Conv_0" in params["params"] and "kernel" in params["params"]["Conv_0"]
-    ref = nets["conv"].apply(params, obs)
-    for impl in ("im2col", "s2d"):
-        got = nets[impl].apply(params, obs)
-        for a, b, nm in zip(ref, got, ("mean", "log_std", "value")):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-5,
-                err_msg=f"{impl}:{nm}",
-            )
+    params = net.init(jax.random.PRNGKey(1), obs)
+    p = params["params"]
+    assert "Conv_0" in p and "kernel" in p["Conv_0"]
+    ref = net.apply(params, obs)
+
+    x, vec = net._split(obs)
+    for i in range(2):
+        x = jax.nn.relu(_im2col_conv(p[f"Conv_{i}"], x))
+    feat = jnp.concatenate([x.reshape(5, -1), vec], axis=-1)
+    got = net.apply_heads(p, feat)
+    for a, b, nm in zip(ref, got, ("mean", "log_std", "value")):
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-5, err_msg=nm,
+        )
 
 
 def test_strided_conv_impls_odd_sizes():
-    """im2col and s2d must match the stock conv for ODD spatial extents
-    too — the asymmetric SAME padding and the s2d even-extent pad logic
-    both branch on parity (rl/networks._StridedConv)."""
-    from pyflyt_tpu.rl.networks import _StridedConv
+    """The stride-2 SAME conv matches the im2col reference for ODD spatial
+    extents too (asymmetric SAME padding), with ceil(h/2) outputs."""
+    from pyflyt_tpu.rl.networks import _conv_init, _strided_conv
 
     for h in (7, 9, 17, 33):
         x = jax.random.normal(jax.random.PRNGKey(0), (3, h, h, 5))
-        ref_mod = _StridedConv(6, impl="conv")
-        params = ref_mod.init(jax.random.PRNGKey(1), x)
-        ref = ref_mod.apply(params, x)
-        assert ref.shape == (3, -(-h // 2), -(-h // 2), 6)
-        for impl in ("im2col", "s2d"):
-            got = _StridedConv(6, impl=impl).apply(params, x)
-            np.testing.assert_allclose(
-                np.asarray(ref), np.asarray(got), rtol=2e-5, atol=2e-5,
-                err_msg=f"{impl}@{h}",
-            )
+        p = _conv_init(jax.random.PRNGKey(1), 5, 6)
+        got = _strided_conv(p, x, jnp.float32)
+        assert got.shape == (3, -(-h // 2), -(-h // 2), 6)
+        np.testing.assert_allclose(
+            np.asarray(_im2col_conv(p, x)), np.asarray(got),
+            rtol=2e-5, atol=2e-5, err_msg=f"h={h}",
+        )
 
 
 def test_vision_net_rank_generic():

@@ -20,7 +20,6 @@ from pyflyt_tpu.envs.packed_hover import (
 from pyflyt_tpu.envs.quadx_hover import QuadXHoverEnv
 
 
-pytestmark = pytest.mark.usefixtures("interpret_pallas")
 
 
 N = 64
@@ -211,3 +210,13 @@ def test_packed_env_steps_under_shard_map():
         or "collective-permute" in l
     ]
     assert not collectives, collectives[:3]
+
+
+def test_noisy_kernel_runs_interpreted():
+    """Motor noise on: the fused hover step runs interpreted (counter-hash
+    normals), deterministic per seed and seed-sensitive."""
+    from _noise import check_noisy_step
+
+    base = QuadXHoverEnv(noisy_motors=True)
+    keys = jax.random.split(jax.random.PRNGKey(5), N)
+    check_noisy_step(PackedQuadXHoverEnv(base=base), keys, _actions(0), 1.0)

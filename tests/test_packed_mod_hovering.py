@@ -4,8 +4,8 @@ Deterministic configuration (noisy_motors=False, max_gust=0): the packed
 path must track the vmapped XLA env exactly — same reset keys produce the
 same initial states and per-env wind bases, and the kernel's gaussian wind
 with max_gust=0 is the deterministic base-only path
-(ops/pallas_quadx.py::_build_kernel docstring). Mosaic lowering is gated
-on hardware by bench_suite.py like the other fused envs.
+(ops/pallas_quadx.py::_build_kernel docstring). The compiled kernel is
+checked on the GPU by chip_smoke.py like the other fused envs.
 """
 
 import jax
@@ -18,7 +18,6 @@ from pyflyt_tpu.envs.quadx_mod.packed_hovering import (
     PackedQuadXModHoveringEnv,
 )
 
-pytestmark = pytest.mark.usefixtures("interpret_pallas")
 
 N = 32
 KW = dict(
@@ -192,3 +191,14 @@ def test_ppo_native_batch_cached_reset_trains():
     runner = ppo.init(jax.random.PRNGKey(0))
     runner, metrics = jax.jit(ppo.train_iteration)(runner)
     assert np.isfinite(float(metrics["loss"]))
+
+
+def test_noisy_kernel_runs_interpreted():
+    """Motor noise and wind gusts on: the packed mod-hovering step runs
+    interpreted, deterministic per seed and seed-sensitive."""
+    from _noise import check_noisy_step
+
+    kw = dict(KW, noisy_motors=True, max_gust_strength=7.0)
+    keys = jax.random.split(jax.random.PRNGKey(5), N)
+    act = jnp.tile(jnp.asarray([0.01, -0.01, 0.0, 0.1]), (N, 1))
+    check_noisy_step(PackedQuadXModHoveringEnv.create(**kw), keys, act, 1.0)

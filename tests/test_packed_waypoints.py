@@ -18,7 +18,6 @@ from pyflyt_tpu.envs.packed_quadx_waypoints import PackedQuadXWaypointsEnv
 from pyflyt_tpu.envs.quadx_waypoints import QuadXWaypointsEnv
 
 
-pytestmark = pytest.mark.usefixtures("interpret_pallas")
 
 
 N = 64
@@ -149,3 +148,14 @@ def test_mode0_crash_and_truncation_match():
         )
         some_done |= bool(jnp.any(ref_out.termination | ref_out.truncation))
     assert some_done
+
+
+def test_noisy_kernel_runs_interpreted():
+    """Motor noise on: the fused waypoints step runs interpreted,
+    deterministic per seed and seed-sensitive."""
+    from _noise import check_noisy_step
+
+    base = QuadXWaypointsEnv(noisy_motors=True, flight_mode=7)
+    keys = jax.random.split(jax.random.PRNGKey(5), N)
+    act = jnp.tile(jnp.asarray([0.5, 0.5, 0.0, 1.0]), (N, 1))
+    check_noisy_step(PackedQuadXWaypointsEnv(base=base), keys, act, 1.0)

@@ -13,8 +13,8 @@ iteration count (see tests/test_pallas_fixedwing.py's measurements: 2 iters
 iterations) cannot compile on CPU at all. Physics/engagement math is
 rate-independent — the only inner>1-specific path is the reward-memo lag
 accumulation, which still round-trips through the state rows every agent
-step at inner=1 — and the stock-rate Mosaic lowering is parity-checked on
-real TPU hardware by bench_suite.py.
+step at inner=1 — and the stock-rate kernel is compiled and parity-checked
+on the GPU by chip_smoke.py.
 """
 
 import jax
@@ -27,7 +27,6 @@ from pyflyt_tpu.envs.ma_fixedwing_dogfight import MAFixedwingDogfightEnv
 from pyflyt_tpu.envs.packed_dogfight import PackedMAFixedwingDogfightEnv
 
 
-pytestmark = pytest.mark.usefixtures("interpret_pallas")
 
 
 N = 16
@@ -209,3 +208,15 @@ def test_packed_env_steps_under_shard_map():
         or "collective-permute" in l
     ]
     assert not collectives, collectives[:3]
+
+
+def test_noisy_kernel_runs_interpreted():
+    """Motor noise on: the fused dogfight step runs interpreted,
+    deterministic per seed and seed-sensitive."""
+    from _noise import check_noisy_step
+
+    base = MAFixedwingDogfightEnv(noisy_motors=True, agent_hz=120)
+    keys = jax.random.split(jax.random.PRNGKey(5), N)
+    check_noisy_step(
+        PackedMAFixedwingDogfightEnv(base=base), keys, _actions(0), 50.0
+    )

@@ -14,7 +14,6 @@ from pyflyt_tpu.models import quadx
 from pyflyt_tpu.ops import pallas_quadx
 
 
-pytestmark = pytest.mark.usefixtures("interpret_pallas")
 
 
 def _random_state(cfg, params, n=256, seed=0):

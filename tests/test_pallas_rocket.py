@@ -20,7 +20,6 @@ from pyflyt_tpu.models import rocket
 from pyflyt_tpu.ops import pallas_rocket
 
 
-pytestmark = pytest.mark.usefixtures("interpret_pallas")
 
 
 N = 16
@@ -295,3 +294,17 @@ def test_packed_env_steps_under_shard_map():
         or "collective-permute" in l
     ]
     assert not collectives, collectives[:3]
+
+
+def test_noisy_kernel_runs_interpreted():
+    """Booster noise on: the fused landing step runs interpreted,
+    deterministic per seed and seed-sensitive."""
+    from _noise import check_noisy_step
+
+    import dataclasses
+
+    base = dataclasses.replace(_low_env(), noisy_boosters=True)
+    n = 16
+    keys = jax.random.split(jax.random.PRNGKey(5), n)
+    act = jnp.tile(jnp.asarray([0.0, 0.0, 0.0, 1.0, 0.5, 0.0, 0.0]), (n, 1))
+    check_noisy_step(PackedRocketLandingEnv(base=base), keys, act, 1.0)

@@ -15,7 +15,6 @@ from pyflyt_tpu.envs.ma_fixedwing_dogfight import MAFixedwingDogfightEnv
 from pyflyt_tpu.envs.packed_dogfight import PackedMAFixedwingDogfightEnv
 from pyflyt_tpu.envs.selfplay_dogfight import SelfPlayDogfightEnv
 
-pytestmark = pytest.mark.usefixtures("interpret_pallas")
 
 B = 16
 
